@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (scade_tpu_torch) on one NVIDIA card and checks it.
 
-    python3 chip_smoke.py [--seed N] [--steps N]
+    python3 chip_smoke.py [--seed N] [--steps N] [--k1-only]
 
 Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
-at once), then prints one line per phase:
+at once), then prints one line per phase (with --k1-only the first two, for
+comparing K1 builds of two trees on one card):
 
-  device  card name and power limit (nvidia-smi), build time
+  device  card name and power limit (nvidia-smi), build time, K1's registers
+          and spills (ptxas) and its tensor-core instructions (cuobjdump
+          -sass: HMMA.16816.F32.BF16 and HMMA.1688.F32.TF32, none is a fault)
   k1      the fused PE + MLP kernel, through its wrapper, against its plain
           version at the main path's launch shapes (D=8, W=256, F=9): a train
           step's 65,536 coarse and 196,608 fine points and a render chunk's
-          1,048,576 and 3,145,728, each in f32 and bf16
+          1,048,576 and 3,145,728, each in f32 and bf16, the weights' packing
+          included; in bf16 also the plain version against itself with its
+          sums reordered, and both against the same function summed in f64
   k2      the inverse-CDF kernel against its plain version at 1,024 and
           65,536 rays, M=63 and M=191, S=128, with draws of exactly 0 and 1
   train   the reference-default train step (64+128 samples, 8x256, N_rand
@@ -32,6 +37,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -60,18 +68,33 @@ from scade_tpu_torch.train.step import (
     sample_ray_batch,
 )
 
-# NVIDIA H100 SXM data sheet, dense: f32 on the CUDA cores, bf16 tensor cores, HBM3
+# NVIDIA H100 SXM data sheet, dense: f32 on the CUDA cores, bf16 and TF32 tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 HBM_BYTES = 3.35e12
 
 H, W = 468, 624
 N_TRAIN, N_VAL, K_HYP = 18, 2, 20
 RENDER_CHUNK = 16384
-# f32 and bf16 alike: the plain version rounds operands to bf16 where the
-# kernel does and sums in f32, so only the order of the sums differs. (An
-# f32 run differs from a bf16 one by ~7e-3, so 1e-4 tells the modes apart.)
+# K1 against its plain version, per point (max abs over its 4 outputs).
+# f32: 1e-4 at every point; the kernel's 3xTF32 products are f32-accurate.
+# bf16: the plain version rounds operands to bf16 where the kernel does and
+# sums in f32, so only the order of the sums differs; but an activation
+# whose f32 sum lies near a bf16 rounding boundary can round the other way
+# in another order, and that flip carries through the later layers. So in
+# bf16 the kernel is held to two witnesses measured in the same run on the
+# same points: the plain version against itself with its sums reordered
+# (its share of points within K1_TOL, less K1_BF16_SHARE_SLACK, and
+# K1_BF16_MAX_RATIO times its largest error), and the exact sums (each of
+# the kernel and the plain version against an oracle that rounds as they do
+# but sums in f64: the kernel's share within K1_TOL at most
+# K1_BF16_SHARE_SLACK below the plain version's). A kernel that rounded with
+# a bias, or got a fraction of its points wrong, would fall behind both. The
+# median stays under K1_BF16_MEDIAN. An f32 output differs from a bf16 one by
+# ~7e-3 (median ~1e-3), so either bound tells the modes apart.
 K1_TOL = 1e-4
+K1_BF16_SHARE_SLACK, K1_BF16_MAX_RATIO, K1_BF16_MEDIAN = 0.01, 2.0, 1e-6
 K2_TOL = (2e-6, 1e-6)  # atol, rtol
 CHECK_TOL = {"rgb_map": 1e-3, "depth_map": 1e-2}
 
@@ -109,60 +132,187 @@ def phase_device() -> dict:
     build_s = time.perf_counter() - t0
     for name in _kernels.SOURCES:
         _kernels.load(name)
+    hmma = k1_tensor_core_instructions()
     line("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=round(build_s, 3), build_s_per_source=per_source)
-    return {"smi": smi}
+         build_s=round(build_s, 3), build_s_per_source=per_source, k1_sass_hmma=hmma,
+         k1_ptxas=k1_ptxas())
+    if not all(hmma.values()):
+        raise RuntimeError(f"device: K1 has no tensor-core instruction of some kind: {hmma}")
+    return {"smi": smi, "hmma": hmma}
 
 
-def phase_k1(gen: torch.Generator) -> dict:
+def k1_tensor_core_instructions() -> dict:
+    """Counts K1's tensor-core instructions in the built library's SASS."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_kernels.library_path("fused_mlp"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    return {op: sass.count(op) for op in ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")}
+
+
+def k1_ptxas() -> dict:
+    """Registers, stack and spills of each K1 instantiation, from the build log."""
+    res, name = {}, None
+    for text in (_kernels.BUILD / "fused_mlp.log").read_text().splitlines():
+        m = re.search(r"fused_mlp_kernelI(13__nv_bfloat16|f)Li(\d+)E", text)
+        if "Function properties for" in text and m:
+            name = f"{'bf16' if m.group(1) != 'f' else 'f32'}_W{m.group(2)}"
+            res[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)):
+            res[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", text)):
+            res[name]["registers"] = int(m.group(1))
+            name = None
+    return res
+
+
+def permute_hidden(weights, cfg, gen: torch.Generator):
+    """The same network with every trunk layer's units permuted: each next
+    layer then takes its sums over them in another order."""
+    ws = [w.detach().clone() for w in weights]
+    E = 3 + 6 * cfg.num_freqs
+    for layer in range(cfg.D):
+        p = torch.randperm(cfg.W, generator=gen).to(ws[0].device)
+        ws[2 * layer], ws[2 * layer + 1] = ws[2 * layer][p], ws[2 * layer + 1][p]
+        for nxt in ([cfg.D, cfg.D + 1] if layer == cfg.D - 1 else [layer + 1]):
+            w = ws[2 * nxt]
+            skip = nxt < cfg.D and (nxt - 1) in cfg.skips  # reads [emb, h]
+            ws[2 * nxt] = (torch.cat([w[:, :E], w[:, E:][:, p]], 1) if skip else w[:, p]).contiguous()
+    return ws
+
+
+def point_errors(a, b) -> dict:
+    err = (a - b).abs().amax(-1)
+    return dict(max=err.max().item(), median=err.median().item(),
+                share_within_tol=(err <= K1_TOL).float().mean().item())
+
+
+def bf16_exact_sums(weights, cfg, pts, dirs, chunk: int = 1 << 20):
+    """K1's bf16 function with its sums taken in f64: the PE in f32 and every
+    product's operands rounded to bf16, as the kernel and the plain version
+    do, then f64 sums and biases. (N, 4) f32."""
+    ws = [w.detach().to(torch.bfloat16).double() for w in weights[0::2]]
+    bs = [b.detach().double() for b in weights[1::2]]
+    emb_cfg = fused_mlp.Embedder(input_dims=3, num_freqs=cfg.num_freqs,
+                                 max_freq_log2=float(cfg.num_freqs - 1))
+
+    def dense(x, i):
+        return torch.nn.functional.linear(x.to(torch.bfloat16).double(), ws[i], bs[i])
+
+    out = []
+    for s in range(0, pts.shape[0], chunk):
+        emb = fused_mlp.positional_encoding(pts[s:s + chunk], emb_cfg).double()
+        h = emb
+        for i in range(cfg.D):
+            x = torch.cat([emb, h], -1) if i > 0 and (i - 1) in cfg.skips else h
+            h = torch.relu(dense(x, i))
+        alpha = dense(h, cfg.D)
+        feature = dense(h, cfg.D + 1)
+        hv = torch.relu(dense(torch.cat([feature, dirs[s:s + chunk].double()], -1), cfg.D + 2))
+        rgb = dense(hv, cfg.D + 3)
+        out.append(torch.cat([rgb, torch.nn.functional.softplus(10.0 * alpha) / 10.0], -1).float())
+        del emb, h, x, alpha, feature, hv, rgb
+    return torch.cat(out)
+
+
+def bf16_agrees(kernel: dict, reordered: dict, kernel_exact: dict, plain_exact: dict) -> bool:
+    """The bf16 bound (see K1_TOL): the kernel against the plain version
+    (``kernel``) beside the plain version reordered (``reordered``), and
+    each against the exact sums."""
+    return (kernel["share_within_tol"] >= reordered["share_within_tol"] - K1_BF16_SHARE_SLACK
+            and kernel["max"] <= K1_BF16_MAX_RATIO * reordered["max"]
+            and kernel["median"] <= K1_BF16_MEDIAN
+            and kernel_exact["share_within_tol"]
+            >= plain_exact["share_within_tol"] - K1_BF16_SHARE_SLACK)
+
+
+def phase_k1(gen: torch.Generator, hmma: dict) -> dict:
     """K1 through its wrapper, ``fused_nerf_apply``, at every shape the main
     path launches it with: a train step's coarse and fine passes and a full
-    render chunk's, in f32 and bf16, each against the plain version."""
+    render chunk's, in f32 and bf16, each against the plain version. Bounds:
+    bf16 at the tensor cores' bf16 rate; f32 at their TF32 rate for the
+    three products 3xTF32 takes (fma_bound_ms: one product at the CUDA
+    cores' f32 rate, the bound of the first K1)."""
     dev = torch.device("cuda")
     rc, tc = make_render_config(), TrainConfig()
     nc = rc.nerf_coarse
     cfg = fused_mlp.FusedCfg(nc.D, nc.W, rc.embed_pos.num_freqs, nc.skips)
     model = NeRF(nc, generator=gen).to(dev)
     weights = fused_mlp.flat_weights(model)
+    reordered = permute_hidden(weights, cfg, gen)
     n_params = sum(w.numel() for w in weights)
     flop_per_point = 2 * nerf_macs(nc.D, nc.W, nc.input_ch)
     per_ray = {"coarse": rc.n_samples, "fine": rc.n_samples + rc.n_importance}
     launches = {f"{where}_{p}": rays * s for where, rays in (("train", tc.n_rand),
                                                                ("render", RENDER_CHUNK))
                 for p, s in per_ray.items()}
+    # The wrapper packs the weights on every call; kernel_ms includes it, and
+    # pack_ms is its share.
+    with torch.no_grad():
+        pack_ms = {name: cuda_ms(lambda: fused_mlp.pack_weights(weights, cfg, dt), 20)
+                   for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        packed_bytes = {name: fused_mlp.pack_weights(weights, cfg, dt).nbytes
+                        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
     res = {}
     for key, n in launches.items():
         pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
         dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
         reps = max(2, 655_360 // n)
-        for dname, dt, peak, wbytes in (("f32", torch.float32, PEAK_F32, 4),
-                                        ("bf16", torch.bfloat16, PEAK_BF16, 2)):
+        for dname, dt, peak, passes in (("f32", torch.float32, PEAK_TF32, 3),
+                                        ("bf16", torch.bfloat16, PEAK_BF16, 1)):
+            entry = {}
             with torch.no_grad():
                 got = fused_mlp.fused_nerf_apply(model, cfg, pts, dirs, dt)
                 ref = fused_mlp.fused_mlp_plain(weights, cfg, pts, dirs, dt)
-                err = (got - ref).abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and err <= K1_TOL
+                err = point_errors(got, ref)
+                if dt == torch.float32:
+                    ok = err["max"] <= K1_TOL
+                else:
+                    other = fused_mlp.fused_mlp_plain(reordered, cfg, pts, dirs, dt)
+                    exact = bf16_exact_sums(weights, cfg, pts, dirs)
+                    entry.update(plain_reordered_vs_plain=point_errors(other, ref),
+                                 kernel_vs_exact=point_errors(got, exact),
+                                 plain_vs_exact=point_errors(ref, exact))
+                    ok = bf16_agrees(err, entry["plain_reordered_vs_plain"],
+                                     entry["kernel_vs_exact"], entry["plain_vs_exact"])
+                    del other, exact
+                ok = ok and bool(torch.isfinite(got).all())
                 del got, ref
                 ms = cuda_ms(lambda: fused_mlp.fused_nerf_apply(model, cfg, pts, dirs, dt), reps)
                 plain_ms = cuda_ms(lambda: fused_mlp.fused_mlp_plain(weights, cfg, pts, dirs, dt),
                                    reps)
-            flops, nbytes = flop_per_point * n, n * (6 + 4) * 4 + n_params * wbytes
-            res[f"{key}_{dname}"] = dict(
-                points=n, ok=ok, max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
-                bound_ms=max(flops / peak, nbytes / HBM_BYTES) * 1e3,
-                bound_by="operations" if flops / peak >= nbytes / HBM_BYTES else "bytes",
-                tflops=flops / ms / 1e9)
+            flops = flop_per_point * n
+            nbytes = n * (6 + 4) * 4 + n_params * (2 if dt == torch.bfloat16 else 4)
+            ops_s, bytes_s = passes * flops / peak, nbytes / HBM_BYTES
+            entry.update(
+                points=n, ok=ok, max_abs_err=err["max"], median_err=err["median"],
+                share_within_tol=err["share_within_tol"], kernel_ms=ms, plain_ms=plain_ms,
+                bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="operations" if ops_s >= bytes_s else "bytes",
+                tflops=flops / ms / 1e9,
+                # every 128-point tile reads all packed weights from L2
+                l2_weight_bytes=-(-n // 128) * packed_bytes[dname])
+            if dt == torch.float32:
+                entry["fma_bound_ms"] = flops / PEAK_F32 * 1e3
+            res[f"{key}_{dname}"] = entry
         del pts, dirs
         torch.cuda.empty_cache()
     line("k1", D=nc.D, W=nc.W, F=rc.embed_pos.num_freqs, mflop_per_point=flop_per_point / 1e6,
-         tol=K1_TOL, **res)
+         tol=dict(f32=K1_TOL, bf16=dict(point=K1_TOL, share_slack=K1_BF16_SHARE_SLACK,
+                                        max_ratio=K1_BF16_MAX_RATIO, median=K1_BF16_MEDIAN)),
+         sass_hmma=hmma, pack_ms=pack_ms, **res)
     bad = [k for k, r in res.items() if not r["ok"]]
     if bad:
         raise RuntimeError(f"k1: kernel disagrees with its plain version at {bad}")
     step = [res["train_coarse_f32"], res["train_fine_f32"]]  # one train step's two launches
-    return dict(max_abs_err=max(r["max_abs_err"] for r in res.values()),
+    return dict(max_abs_err=max(r["max_abs_err"] for k, r in res.items() if k.endswith("f32")),
+                max_abs_err_bf16=max(r["max_abs_err"] for k, r in res.items()
+                                     if k.endswith("bf16")),
                 ms=sum(s["kernel_ms"] for s in step), plain_ms=sum(s["plain_ms"] for s in step),
-                bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"])
+                bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"],
+                fma_bound_ms=sum(s["fma_bound_ms"] for s in step))
 
 
 def k2_inputs(gen: torch.Generator, R: int, M: int, S: int = 128):
@@ -374,6 +524,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--k1-only", action="store_true",
+                        help="run the device and k1 phases only and print no result line: "
+                             "for comparing K1 builds of two trees on one card")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -383,7 +536,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
 
     dev = phase_device()
-    k1 = phase_k1(gen)
+    k1 = phase_k1(gen, dev["hmma"])
+    if args.k1_only:
+        return 0
     k2 = phase_k2(gen)
     state, scene, rc, tc, train_launches = phase_train(args.seed, args.steps)
     phase_split(state, scene, rc, tc, args.seed)
@@ -394,7 +549,8 @@ def main() -> int:
         dict(name="fused_mlp", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
              replaces="scade_tpu/ops/fused_mlp.py:187", launches=train_launches["k1"],
              max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass"),
+             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass",
+             max_abs_err_bf16=k1["max_abs_err_bf16"], fma_bound_ms=k1["fma_bound_ms"]),
         dict(name="sample_pdf_lookup", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:110", launches=train_launches["k2"],

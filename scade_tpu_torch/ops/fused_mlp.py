@@ -3,7 +3,9 @@
 Replaces the Pallas kernel ``scade_tpu/ops/fused_mlp.py::_kernel``. The CUDA
 source is ``csrc/fused_mlp.cu``; its header says what bounds it on the card
 (operations: 1.17 MFLOP per point at D=8, W=256, F=9) and how the design
-keeps the activations on chip.
+keeps the activations on chip and runs the W-wide layers on the tensor cores.
+The kernel reads its weights from one buffer that ``pack_weights`` writes per
+call, in the layout ``pack_layout`` describes.
 
 ``fused_nerf_apply`` is the entry point. For CUDA tensors it launches the
 kernel (``fused_mlp_cuda``) and raises if the launch fails; only for CPU
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -88,6 +91,109 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
     return torch.cat([rgb, F.softplus(10.0 * alpha) / 10.0], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """One matrix of the packed weight buffer: rows ``n`` of layer ``layer``'s
+    weight, input columns ``k0 .. k0 + k``, stored row-major with ``kp``
+    columns (zeros past ``k``) from element ``offset`` on."""
+
+    layer: int
+    k0: int
+    k: int
+    kp: int
+    n: int
+    offset: int
+
+
+def kstep(dtype) -> int:
+    """Depth of one tensor-core product: m16n8k16 in bf16, m16n8k8 in tf32."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+@functools.lru_cache(maxsize=None)
+def pack_layout(cfg: FusedCfg, dtype) -> Tuple[Part, ...]:
+    """The parts of the packed buffer, in the order the kernel reads them:
+    each trunk layer (the skip layer as its emb part, then its h part), the
+    alpha head, the feature layer, the view layer (feature part, then dirs
+    part), the rgb head. K is padded with zeros to a whole product depth (32
+    bytes), so every row and every part starts 32-byte aligned, as
+    ``cp.async`` needs; the skip layer's emb part and layer 0 take E = 3 + 6F
+    to at most 64 columns, the dirs part 3 to one depth."""
+    D, W, E = cfg.D, cfg.W, 3 + 6 * cfg.num_freqs
+    step = kstep(dtype)
+    parts: List[Part] = []
+    end = 0
+
+    def add(layer, k0, k, n):
+        nonlocal end
+        kp = -(-k // step) * step
+        parts.append(Part(layer, k0, k, kp, n, end))
+        end += n * kp
+
+    for layer in range(D):
+        if layer == 0:
+            add(0, 0, E, W)
+        elif (layer - 1) in cfg.skips:
+            add(layer, 0, E, W)
+            add(layer, E, W, W)
+        else:
+            add(layer, 0, W, W)
+    add(D, 0, W, 1)  # alpha
+    add(D + 1, 0, W, W)  # feature
+    add(D + 2, 0, W, W // 2)  # views on the feature
+    add(D + 2, W, 3, W // 2)  # views on the dirs
+    add(D + 3, 0, W // 2, 3)  # rgb
+    return tuple(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_shapes(cfg: FusedCfg) -> Tuple[Tuple[int, int], ...]:
+    """(out, in) of each weight matrix of ``flat_weights``."""
+    D, W, E = cfg.D, cfg.W, 3 + 6 * cfg.num_freqs
+    trunk = [(W, E if layer == 0 else E + W if (layer - 1) in cfg.skips else W)
+             for layer in range(D)]
+    return (*trunk, (1, W), (W, W), (W // 2, W + 3), (3, W // 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(cfg: FusedCfg, dtype, device) -> torch.Tensor:
+    """For each element of the packed buffer, the index of its weight in the
+    weight matrices flattened and concatenated, or one past their end (a
+    zero) where ``pack_layout`` pads."""
+    shapes = _weight_shapes(cfg)
+    starts = [0]
+    for n, k in shapes:
+        starts.append(starts[-1] + n * k)
+    parts = pack_layout(cfg, dtype)
+    index = torch.full((parts[-1].offset + parts[-1].n * parts[-1].kp,), starts[-1])
+    for p in parts:
+        k_in = shapes[p.layer][1]
+        src = starts[p.layer] + p.k0 + torch.arange(p.n)[:, None] * k_in + torch.arange(p.k)
+        index[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k] = src
+    return index.to(device)
+
+
+def pack_weights(weights: Sequence[torch.Tensor], cfg: FusedCfg, dtype) -> torch.Tensor:
+    """The weights of ``flat_weights`` in the kernel's packed layout: one
+    contiguous 1-D buffer of ``dtype`` (bf16, or f32 for the 3xTF32 mode),
+    zero wherever ``pack_layout`` pads, written anew on every call by one
+    gather. Biases are not packed: the kernel reads them as they are, in
+    f32."""
+    mats = [w.detach() for w in weights[0::2]]
+    shapes = _weight_shapes(cfg)
+    if [tuple(m.shape) for m in mats] != list(shapes):
+        raise ValueError(f"pack_weights: weight shapes {[tuple(m.shape) for m in mats]}, "
+                         f"expected {list(shapes)}")
+    flat = torch.cat([*(m.reshape(-1) for m in mats), mats[0].new_zeros(1)]).to(dtype)
+    return flat[_pack_index(cfg, dtype, flat.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_table(cfg: FusedCfg, dtype):
+    parts = pack_layout(cfg, dtype)
+    return (ctypes.c_int * (3 * len(parts)))(*[v for p in parts for v in (p.offset, p.n, p.kp)])
+
+
 def _check_operand(t: torch.Tensor, shape, what: str):
     if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(f"{what}: needs a contiguous float32 CUDA tensor, got "
@@ -102,9 +208,9 @@ def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
     counts the launches."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_mlp_cuda: compute_dtype {compute_dtype} not supported")
-    if cfg.W not in (64, 128, 256) or not 1 <= cfg.D <= 16:
-        raise ValueError(f"fused_mlp_cuda: D={cfg.D}, W={cfg.W} not supported "
-                         "(D <= 16, W in 64/128/256)")
+    if cfg.W not in (64, 128, 256) or not 1 <= cfg.D <= 16 or not 1 <= cfg.num_freqs <= 10:
+        raise ValueError(f"fused_mlp_cuda: D={cfg.D}, W={cfg.W}, F={cfg.num_freqs} not "
+                         "supported (D <= 16, W in 64/128/256, F <= 10)")
     if any(s >= 31 for s in cfg.skips):
         raise ValueError(f"fused_mlp_cuda: skips {cfg.skips} out of range")
     n = pts.shape[0]
@@ -120,16 +226,19 @@ def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
+    packed = pack_weights(weights, cfg, compute_dtype)
+    table = _layout_table(cfg, compute_dtype)
     lib = _kernels.load("fused_mlp")
     fn = lib.fused_mlp_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+    biases = (ctypes.c_void_p * (cfg.D + 4))(*[b.data_ptr() for b in weights[1::2]])
     skip_mask = sum(1 << s for s in cfg.skips)
     status = fn(
         pts.data_ptr(), dirs.data_ptr(), out.data_ptr(), n, cfg.D, cfg.W,
-        cfg.num_freqs, skip_mask, int(compute_dtype == torch.bfloat16), ptrs,
-        torch.cuda.current_stream(pts.device).cuda_stream,
+        cfg.num_freqs, skip_mask, int(compute_dtype == torch.bfloat16), packed.data_ptr(),
+        table, len(table) // 3, biases, torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _kernels.check(status, "fused_mlp_forward")
     fused_mlp_cuda.launches += 1

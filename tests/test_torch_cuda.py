@@ -6,11 +6,21 @@ them; tests/conftest.py imports JAX, so run it there with
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerances: K1 1e-4 in f32 and in bf16 (the plain version rounds operands
-to bf16 where the kernel does, so only the sum order differs; f32 and bf16
-outputs differ by ~7e-3, so the bound tells the modes apart), K2 2e-6/1e-6
-(same arithmetic, same order) and its gradient 1e-5 (atomic adds), the
-renderer as in chip_smoke.py.
+Tolerances: K1 in f32 1e-4 at every point (the 3xTF32 products are
+f32-accurate; the plain version rounds where the kernel does). K1 in bf16 is
+held per point to the same 1e-4, but for 95% of the points, with a median
+under 1e-6 and every point within 0.05: operands rounded to bf16 make a sum
+taken in another order round an activation the other way now and then, and
+the flip carries through the later layers. The plain version, with its
+hidden units permuted (the same function, its sums in another order),
+disagrees with itself that way: chip_smoke.py measures it beside the kernel
+and holds the kernel to it and to sums taken in f64 (on an H100, at the main
+path's shapes: the kernel 97.9% of points within 1e-4, the plain version
+reordered 97.4%, both at most 3.0e-2; at this file's sizes the kernel keeps
+96.9-100%). A kernel run in the other mode fails either bound. Point counts
+around the 128-point tile check its masked edge. K2
+2e-6/1e-6 (same arithmetic, same order) and its gradient 1e-5 (atomic adds),
+the renderer as in chip_smoke.py.
 """
 
 import pytest
@@ -19,6 +29,12 @@ import torch
 from scade_tpu_torch.models.nerf import NeRF, NeRFConfig
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.render import renderer
+
+
+def bf16_agrees(err, tol):
+    """The bf16 mode's bound on the per-point errors ``err``: see above."""
+    return bool((err <= tol).float().mean() >= 0.95 and err.median() <= 1e-6
+                and err.max() <= 0.05)
 
 
 @pytest.fixture
@@ -30,7 +46,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,F,n", [(256, 9, 1000), (128, 4, 77), (64, 10, 64)])
+@pytest.mark.parametrize("W,F,n", [(256, 9, 1000), (256, 9, 127), (256, 9, 128), (256, 9, 129),
+                                   (128, 4, 77), (64, 10, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-4)])
 def test_k1_matches_plain(cuda, W, F, n, dtype, tol):
     gen = torch.Generator().manual_seed(W + n)
@@ -48,9 +65,14 @@ def test_k1_matches_plain(cuda, W, F, n, dtype, tol):
         other = fused_mlp.fused_mlp_plain(
             ws, cfg, pts, dirs, torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
     torch.cuda.synchronize()
-    assert (got - ref).abs().max().item() <= tol
+    err, other_err = (got - ref).abs().amax(-1), (other - ref).abs().amax(-1)
     # a kernel that ran in the other mode would fail the bound
-    assert (other - ref).abs().max().item() > 10 * tol
+    if dtype == torch.float32:
+        assert err.max().item() <= tol
+        assert other_err.max().item() > 10 * tol
+    else:
+        assert bf16_agrees(err, tol)
+        assert not bf16_agrees(other_err, tol)
 
 
 @pytest.mark.cuda
