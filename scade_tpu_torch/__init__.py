@@ -6,7 +6,7 @@ The package mirrors scade_tpu's module layout (``scade_tpu/X/y.py`` is
 - ``ops``      — tensor math (positional encoding, rays, volume rendering,
   inverse-CDF sampling, losses) and the two hand-written CUDA kernels,
   ``ops/fused_mlp.py`` (PE + NeRF MLP) and ``ops/fused_sampling.py``
-  (inverse-CDF lookup), each beside its plain PyTorch version.
+  (CDF build + inverse-CDF lookup), each beside its plain PyTorch version.
 - ``models``   — the NeRF MLP as an ``nn.Module`` with the reference's
   parameter names.
 - ``render``   — coarse/fine/P_depth rendering of ray batches and images.

@@ -1,4 +1,4 @@
-"""Kernels K1 (fused PE + MLP) and K2 (inverse-CDF lookup) of the port, as
+"""Kernels K1 (fused PE + MLP) and K2 (CDF build + inverse-CDF lookup) of the port, as
 the CPU runs them (their plain versions behind the autograd Functions),
 against the JAX package's Pallas kernels in interpret mode.
 
@@ -123,9 +123,8 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_mlp.fused_mlp_cuda(fused_mlp.flat_weights(model), cfg, torch.from_numpy(pts),
                                  torch.from_numpy(dirs))
-    z = torch.zeros(2, 5)
     with pytest.raises(ValueError, match="CUDA"):
-        fused_sampling.sample_pdf_lookup_cuda(z, z, torch.zeros(2, 3))
+        fused_sampling.sample_pdf_cuda(torch.zeros(2, 5), torch.zeros(2, 4), torch.zeros(2, 3))
 
 
 def dyadic_weights(rng, R, M):
@@ -163,11 +162,11 @@ def test_k2_end_to_end_and_gradient(M):
         return out, vjp(jnp.ones_like(out))[:2]
 
     ref, (gb, gw) = jax.tree.map(np.asarray, value_and_grads(bins, w, u))
-    before = fused_sampling.sample_pdf_lookup_cuda.launches
+    before = fused_sampling.sample_pdf_cuda.launches
     wt = torch.from_numpy(w).requires_grad_(True)
     bt = torch.from_numpy(bins).requires_grad_(True)
     got = fused_sampling.fused_sample_pdf(bt, wt, torch.from_numpy(u))
-    assert fused_sampling.sample_pdf_lookup_cuda.launches == before
+    assert fused_sampling.sample_pdf_cuda.launches == before
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=2e-6, rtol=1e-6)
 
     # gradients reach ~1e3 where a draw lands in a narrow interval; the
