@@ -29,9 +29,16 @@ comparing K1 builds of two trees on one card):
           step with both kernels off (their plain versions)
   check   render_rays through the kernels against the plain path, 512 rays
   render  a full 468x624 val view through render_image, f32 and bf16
+  cli     the port's CLI as a user runs it (python -m scade_tpu_torch): a
+          ScanNet-shaped scene written to a temporary directory (18 train + 2
+          val + 2 test views at 468x624, PNGs, K=20 .npy hypotheses), then
+          `train` for 20 steps at the reference defaults with .tar files at
+          10 and 20 and the i_img renders at 20, then `test`; K1 and K2 must
+          launch 2 per step and 36 per view, the .tar reload bit-equal and the
+          two metrics.txt agree
 
-then the kernels line (one JSON object per kernel: launches in the train
-phase, error, times and bound), the card's name and power limit, and last
+then the kernels line (one JSON object per kernel: launches in the cli
+phase's train run, error, times and bound), the card's name and power limit, and last
 a JSON line naming the device. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Needs one card.
 """
@@ -39,6 +46,8 @@ there is no CUDA device or any phase fails. Needs one card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -47,12 +56,17 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
-from scade_tpu_torch import _kernels
+from scade_tpu_torch import _kernels, cli
+from scade_tpu_torch.data import image_io
+from scade_tpu_torch.data import scene as scene_io
+from scade_tpu_torch.eval import evaluate
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops.rays import get_rays
@@ -62,6 +76,7 @@ from scade_tpu_torch.render.renderer import (
     render_image,
     render_rays,
 )
+from scade_tpu_torch.train import loop
 from scade_tpu_torch.train.step import (
     SceneTensors,
     TrainConfig,
@@ -71,6 +86,7 @@ from scade_tpu_torch.train.step import (
     make_train_step,
     sample_ray_batch,
 )
+from scade_tpu_torch.utils import ckpt
 
 # NVIDIA H100 SXM data sheet, dense: f32 on the CUDA cores, bf16 and TF32 tensor cores, HBM3
 PEAK_F32 = 67e12
@@ -79,7 +95,7 @@ PEAK_TF32 = 495e12
 HBM_BYTES = 3.35e12
 
 H, W = 468, 624
-N_TRAIN, N_VAL, K_HYP = 18, 2, 20
+N_TRAIN, N_VAL, N_TEST, K_HYP = 18, 2, 2, 20
 RENDER_CHUNK = 16384
 # K1 against its plain version, per point (max abs over its 4 outputs).
 # f32: 1e-4 at every point; the kernel's 3xTF32 products are f32-accurate.
@@ -571,7 +587,7 @@ def phase_train(seed: int, steps: int):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not (finite and per_step_ok):
         raise RuntimeError("train: non-finite loss or wrong kernel launch count")
-    return state, scene, rc, tc, launches
+    return state, scene, rc, tc, launches, statistics.median(tail)
 
 
 def phase_split(state, scene, rc, tc, seed: int, steps: int = 5) -> None:
@@ -661,6 +677,256 @@ def phase_render(state, scene) -> dict:
     return res
 
 
+def write_scene(root: str, seed: int) -> dict:
+    """A ScanNet-shaped scene in the reference's on-disk format under
+    ``root/scene``: 18 train + 2 val + 2 test views at 468x624 (RGB and 16-bit
+    depth and target_depth PNGs, written by the port's own PNG encoder whether
+    or not cv2 exists, so the load reads the codec's files back, through cv2
+    where it is installed), K=20 ``leres_cimle/dump/<img>_<k>.npy``
+    hypotheses per train view and a ``transforms_<split>.json`` per split."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "scene")
+    for sub in ("train/rgb", "train/depth", "train/target_depth", "train/leres_cimle/dump"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    near, far, dsf = 0.1, 6.0, 1000.0
+    splits = {"train": N_TRAIN, "val": N_VAL, "test": N_TEST}
+    n = sum(splits.values())
+    angles = np.linspace(0.0, 2 * np.pi, n, endpoint=False) + rng.uniform(0, 0.1, n)
+    k = 0
+    for split, count in splits.items():
+        frames = []
+        for _ in range(count):
+            pose = look_at(np.array([2.5 * np.cos(angles[k]), 0.4, 2.5 * np.sin(angles[k])]))
+            rgb = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+            depth_mm = rng.integers(500, 5500, (H, W), dtype=np.uint16)
+            depth_mm[:8] = 0  # invalid depth, as a sensor leaves it
+            image_io.png_encode(os.path.join(base, f"train/rgb/{k}.png"), rgb)
+            image_io.png_encode(os.path.join(base, f"train/depth/{k}.png"), depth_mm)
+            image_io.png_encode(os.path.join(base, f"train/target_depth/{k}.png"), depth_mm)
+            if split == "train":
+                for j in range(K_HYP):
+                    np.save(os.path.join(base, f"train/leres_cimle/dump/{k}_{j}.npy"),
+                            rng.uniform(0.5, 5.5, (H, W)).astype(np.float32))
+            frames.append({"file_path": f"train/rgb/{k}.png",
+                           "depth_file_path": f"train/depth/{k}.png",
+                           "transform_matrix": pose.tolist(),
+                           "fx": 577.9, "fy": 577.9, "cx": 312.0, "cy": 234.0})
+            k += 1
+        meta = {"frames": frames}
+        if split == "train":
+            meta.update(near=near, far=far, depth_scaling_factor=dsf)
+        with open(os.path.join(base, f"transforms_{split}.json"), "w") as fp:
+            json.dump(meta, fp)
+    return {"views": n, "hyps_gb": N_TRAIN * K_HYP * H * W * 4 / 1e9}
+
+
+class CliProbe:
+    """Watches the CLI's run without changing it: the kernel launches and a
+    CUDA event after every train step (no synchronize), each step's loss
+    tensor, the launches of every rendered view, the wall time of the eval
+    path's renders (which end in copies to the host) and of the scene load."""
+
+    def __init__(self):
+        self.step_launches, self.view_launches = [], []
+        self.events, self.host_ms, self.losses = [], [], []
+        self.eval_s, self.eval_views, self.load_s = 0.0, 0, []
+        self._patches = [
+            mock.patch.object(loop, "make_train_step", self._wrap_make_train_step(
+                loop.make_train_step)),
+            mock.patch.object(evaluate, "render_image", self._wrap_render_image(
+                evaluate.render_image)),
+            mock.patch.object(loop, "render_images_with_metrics", self._wrap_eval(
+                loop.render_images_with_metrics)),
+            mock.patch.object(evaluate, "render_images_with_metrics", self._wrap_eval(
+                evaluate.render_images_with_metrics)),
+            mock.patch.object(scene_io, "load_scene_scannet", self._wrap_load(
+                scene_io.load_scene_scannet)),
+        ]
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+    def _wrap_make_train_step(self, make):
+        def made(*args, **kwargs):
+            step_fn = make(*args, **kwargs)
+
+            def step(*a, **kw):
+                before, t0 = counts(), time.perf_counter()
+                metrics = step_fn(*a, **kw)
+                self.host_ms.append((time.perf_counter() - t0) * 1e3)
+                after = counts()
+                self.step_launches.append({k: after[k] - before[k] for k in after})
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.events.append(event)
+                self.losses.append(metrics["loss"])
+                return metrics
+
+            return step
+        return made
+
+    def _wrap_render_image(self, render):
+        def wrapped(*args, **kwargs):
+            before = counts()
+            out = render(*args, **kwargs)
+            after = counts()
+            self.view_launches.append({k: after[k] - before[k] for k in after})
+            return out
+        return wrapped
+
+    def _wrap_eval(self, fn):
+        def wrapped(count, indices, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(count, indices, *args, **kwargs)
+            self.eval_s += time.perf_counter() - t0
+            self.eval_views += len(indices) if count is None else count
+            return out
+        return wrapped
+
+    def _wrap_load(self, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.load_s.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def step_ms(self) -> list:
+        """Device-side ms of each step after the first: between the events
+        recorded after consecutive steps, so host stalls between steps count."""
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def read_metrics(path: str) -> dict:
+    with open(path) as f:
+        return {k: float(v) for k, v in (line.split(": ") for line in f.read().splitlines())}
+
+
+def phase_cli(seed: int, train_median_ms: float):
+    """The port's CLI as a user runs it: ``train`` for 20 steps at the
+    reference defaults (64+128 samples, 8x256, N_rand 1024, f32, kernels on)
+    on a ScanNet-shaped scene read from disk, a .tar at steps 10 and 20, the
+    i_img renders at 20 (2 train + 2 val views) and the final test render (2
+    views), then ``test`` from the newest .tar. Everything goes to a
+    temporary directory (the TB root is relative to the working directory,
+    so the phase runs there). Fails unless K1 and K2 launch 2 per step and 36
+    per view, the losses are finite, the .tar reloads to the trained
+    parameters and Adam state exactly, both metrics.txt agree, and i_img
+    wrote its TB/JSONL entries."""
+    tmp = tempfile.mkdtemp(prefix="scade_cli_")
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        scene = write_scene(tmp, seed)
+        write_s = time.perf_counter() - t0
+        os.chdir(tmp)
+        common = ["--data_dir", tmp, "--scene_id", "scene", "--ckpt_dir", "ckpt",
+                  "--expname", "cli", "--cimle_dir", "dump", "--num_hypothesis", str(K_HYP),
+                  "--seed", str(seed)]
+        with CliProbe() as train, contextlib.redirect_stdout(log):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state = cli.main("scannet", ["train", *common, "--num_iterations", "20",
+                                         "--i_weights", "10", "--i_print", "10",
+                                         "--i_img", "20"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_launches = counts()
+        result_dir = os.path.join("ckpt", "cli", "test_images_scene")
+        train_metrics = read_metrics(os.path.join(result_dir, "metrics.txt"))
+        with CliProbe() as test, contextlib.redirect_stdout(log):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main("scannet", ["test", *common])
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            test_launches = counts()
+        test_metrics = read_metrics(os.path.join(result_dir, "metrics.txt"))
+
+        chunks = -(-H * W // RENDER_CHUNK)
+        per_view = {"k1": 2 * chunks, "k2": 2 * chunks}
+        steps_ok = len(train.step_launches) == 20 and all(
+            d == {"k1": 2, "k2": 2} for d in train.step_launches)
+        views_ok = (len(train.view_launches) == 6 and len(test.view_launches) == 2
+                    and all(d == per_view for d in train.view_launches + test.view_launches)
+                    and train_launches == {k: 2 * 20 + 6 * per_view[k] for k in per_view}
+                    and test_launches == {k: 2 * per_view[k] for k in per_view})
+        losses = [float(x) for x in train.losses]
+        finite = all(math.isfinite(x) for x in losses)
+
+        raw = ckpt.load_checkpoint_raw(os.path.join("ckpt", "cli", "000020.tar"))
+        extra = raw["scade_tpu_torch"]
+        tar_ok = (raw["global_step"] == state.step == 20
+                  and extra["opt"]["count"] == state.opt.count == 20
+                  and extra["ss_opt"]["count"] == state.ss_opt.count == 20)
+        for model, key in ((state.model_coarse, "network_fn_state_dict"),
+                           (state.model_fine, "network_fine_state_dict")):
+            for name, t in model.state_dict().items():
+                tar_ok = tar_ok and torch.equal(t.cpu(), raw[key]["module." + name])
+        for key, opt in (("opt", state.opt), ("ss_opt", state.ss_opt)):
+            for saved, live in ((extra[key]["mu"], opt.mu), (extra[key]["nu"], opt.nu)):
+                tar_ok = tar_ok and len(saved) == len(live) and all(
+                    torch.equal(a, b.cpu()) for a, b in zip(saved.values(), live))
+        tar_ok = tar_ok and torch.equal(raw["depth_scales"], state.scales.detach().cpu())
+
+        keys_ok = list(train_metrics) == list(test_metrics) == [
+            "img_loss", "psnr", "ssim", "lpips", "img_loss0", "psnr0", "depth_rmse"]
+        agree = keys_ok and all(
+            (math.isnan(a) and math.isnan(b)) or math.isclose(a, b, rel_tol=1e-6, abs_tol=0.0)
+            for a, b in zip(train_metrics.values(), test_metrics.values()))
+        finite_metrics = all(math.isfinite(test_metrics[k]) for k in ("psnr", "ssim",
+                                                                      "depth_rmse"))
+        with open(os.path.join("runs", "cli", "scalars.jsonl")) as f:
+            logged = [json.loads(x) for x in f.read().splitlines()]
+        tags20 = {(x["tag"], tuple(x.get("values", {}))) for x in logged if x["step"] == 20}
+        tb_ok = all(t in tags20 for t in (("psnr", ("val",)), ("mse", ("val",)), ("ssim", ()),
+                                          ("lpips", ()), ("depth_rmse", ()),
+                                          ("psnr", ("train",))))
+        files = sorted(os.listdir(result_dir))
+
+        step_ms = train.step_ms()  # step_ms[i - 2] ends at step i
+        last10 = step_ms[-10:]
+        line("cli", views=scene["views"], H=H, W=W, K=K_HYP, hyps_gb=scene["hyps_gb"],
+             scene_write_s=write_s, scene_load_s=train.load_s[0], test_scene_load_s=test.load_s[0],
+             train_command_s=train_s, test_command_s=test_s,
+             loop_ms_per_step_median_11_20=statistics.median(last10),
+             loop_ms_per_step_mean_11_20=statistics.mean(last10), loop_ms_per_step_11_20=last10,
+             loop_host_ms_per_step_median_11_20=statistics.median(train.host_ms[10:]),
+             train_phase_ms_per_step_median=train_median_ms,
+             s_per_view_train_eval=train.eval_s / train.eval_views,
+             s_per_view_test=test.eval_s / test.eval_views,
+             eval_views=dict(train=train.eval_views, test=test.eval_views),
+             launches=dict(train=train_launches, test=test_launches,
+                           per_step=train.step_launches[0], per_view=train.view_launches[0]),
+             launches_per_step_ok=steps_ok, launches_per_view_ok=views_ok,
+             loss_first=losses[0], loss_last=losses[-1], finite=finite, tar_bit_equal=tar_ok,
+             metrics_train=train_metrics, metrics_test=test_metrics, metrics_agree=agree,
+             metrics_finite=finite_metrics, tb_entries_ok=tb_ok, result_files=files,
+             cv2_installed=image_io.jpeg_available())
+        bad = [name for name, ok in (("launches per step", steps_ok),
+                                     ("launches per view", views_ok), ("finite losses", finite),
+                                     (".tar reload", tar_ok), ("metrics.txt agree", agree),
+                                     ("finite metrics", finite_metrics),
+                                     ("i_img TB entries", tb_ok)) if not ok]
+        if bad:
+            raise RuntimeError(f"cli: failed {bad}")
+        return train_launches
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -681,22 +947,29 @@ def main() -> int:
     if args.k1_only:
         return 0
     k2 = phase_k2(gen)
-    state, scene, rc, tc, train_launches = phase_train(args.seed, args.steps)
+    state, scene, rc, tc, train_launches, train_median_ms = phase_train(args.seed, args.steps)
     phase_split(state, scene, rc, tc, args.seed)
     phase_check(state, scene, rc)
     phase_render(state, scene)
+    del state, scene
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli(args.seed, train_median_ms)
 
+    # launches: the CLI's train run (20 steps and 6 rendered views), the main
+    # path as a user drives it; launches_train_phase: the bare train phase's
     kernels = [
         dict(name="fused_mlp", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
-             replaces="scade_tpu/ops/fused_mlp.py:187", launches=train_launches["k1"],
+             replaces="scade_tpu/ops/fused_mlp.py:187", launches=cli_launches["k1"],
              max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
              bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass",
+             launches_train_phase=train_launches["k1"],
              max_abs_err_bf16=k1["max_abs_err_bf16"], fma_bound_ms=k1["fma_bound_ms"]),
         dict(name="sample_pdf", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
-             replaces="scade_tpu/ops/fused_sampling.py:110", launches=train_launches["k2"],
+             replaces="scade_tpu/ops/fused_sampling.py:110", launches=cli_launches["k2"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None, check="pass",
+             launches_train_phase=train_launches["k2"],
              wall_ms=k2["wall_ms"], max_abs_err_vs_sample_pdf=k2["max_abs_err_vs_sample_pdf"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,11 +10,20 @@ The package mirrors scade_tpu's module layout (``scade_tpu/X/y.py`` is
 - ``models``   — the NeRF MLP as an ``nn.Module`` with the reference's
   parameter names.
 - ``render``   — coarse/fine/P_depth rendering of ray batches and images.
-- ``train``    — the train step: batch gather, losses, two optax-style Adams.
+- ``train``    — the train step (batch gather, losses, two optax-style Adams)
+  and the train loop (cadence, checkpoints, logging, the final test).
+- ``data``     — scene loading: transforms_*.json, images, depths, cIMLE
+  hypotheses, and a PNG codec for machines without OpenCV.
+- ``eval``     — rendering views with PSNR/SSIM/LPIPS/depth RMSE and writing
+  the test results.
+- ``utils``    — the CLI's flags, ``.tar`` checkpoints, metrics.txt and the
+  TensorBoard/JSONL writer.
+- ``cli``      — ``python -m scade_tpu_torch train|test``, the reference
+  runner's CLI.
 - ``convert``  — weights between the JAX params layout and the state_dict.
 
-Entry points run on ``RenderConfig.device``: ``cuda`` unless the caller
-passes ``make_render_config(device="cpu")``. The
+Entry points run on ``RenderConfig.device`` (the CLI's ``--device``): ``cuda``
+unless the caller asks for the CPU. The
 CUDA sources live in ``csrc/`` and are built with nvcc at first use
 (``_kernels.py``).
 """

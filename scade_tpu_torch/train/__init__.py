@@ -4,6 +4,7 @@ from scade_tpu_torch.train.step import (
     TrainState,
     create_train_state,
     make_train_step,
+    scene_tensors_from_scene,
     staircase_lr,
 )
 
@@ -13,5 +14,6 @@ __all__ = [
     "TrainState",
     "create_train_state",
     "make_train_step",
+    "scene_tensors_from_scene",
     "staircase_lr",
 ]

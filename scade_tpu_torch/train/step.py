@@ -166,6 +166,32 @@ def create_train_state(
     return state
 
 
+def scene_tensors_from_scene(scene, bb_center, bb_scale, device) -> SceneTensors:
+    """The train step's tensors from a loaded ``data.scene.Scene``, on
+    ``device``, one transfer each: the train images then the val images (the
+    test images when there is no val split), as the reference repacks them
+    (run_scade_scannet.py:843-872), and the train images' hypotheses."""
+    i_train, i_val = scene.i_train, scene.i_val
+    if len(i_val) == 0:
+        i_val = scene.i_test
+    i_rel = np.concatenate([i_train, i_val], 0)
+    device = torch.device(device)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    return SceneTensors(
+        images=put(scene.images[i_rel]),
+        poses=put(scene.poses[i_rel]),
+        intrinsics=put(scene.intrinsics[i_rel]),
+        hyps=put(scene.depth_hypothesis),
+        near=torch.tensor(scene.near, dtype=torch.float32, device=device),
+        far=torch.tensor(scene.far, dtype=torch.float32, device=device),
+        bb_center=put(bb_center),
+        bb_scale=torch.tensor(bb_scale, dtype=torch.float32, device=device),
+    )
+
+
 def _corner_mask(rows, cols, H: int, W: int, n_pix: int = 20):
     """Zero a 20 px square in each image corner."""
     in_r = (rows < n_pix) | (rows >= H - n_pix)
