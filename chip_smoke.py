@@ -36,6 +36,13 @@ comparing K1 builds of two trees on one card):
           10 and 20 and the i_img renders at 20, then `test`; K1 and K2 must
           launch 2 per step and 36 per view, the .tar reload bit-equal and the
           two metrics.txt agree
+  prior   the depth prior's inference path: the full-width ResNeXt101-32x8d
+          cIMLE model (seeded weights, saved as a reference-format .pth and
+          loaded back) at the 448 crop, the card's f32 against the CPU's and
+          bf16 against f32, forward times and the FLOP bound; then
+          `python -m scade_tpu_torch.prior.dump` on the cli phase's kind of
+          scene (360 hypotheses, K=20, bf16) and the CLI's `train` for 5 steps
+          on what it wrote, K1 and K2 at 2 launches a step
 
 then the kernels line (one JSON object per kernel: launches in the cli
 phase's train run, error, times and bound), the card's name and power limit, and last
@@ -70,6 +77,9 @@ from scade_tpu_torch.eval import evaluate
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops.rays import get_rays
+from scade_tpu_torch.prior import data as prior_data
+from scade_tpu_torch.prior import dump as prior_dump
+from scade_tpu_torch.prior import model as prior_model
 from scade_tpu_torch.render.renderer import (
     SceneVars,
     make_render_config,
@@ -132,6 +142,17 @@ K1_BF16_SHARE_SLACK, K1_BF16_MAX_RATIO, K1_BF16_MEDIAN = 0.01, 2.0, 1e-6
 K2_TOL = (2e-6, 1e-6)
 K2_WITNESS, K2_SHARE_SLACK, K2_CDF_RATIO = 1e-5, 0.001, 2.0
 CHECK_TOL = {"rgb_map": 1e-3, "depth_map": 1e-2}
+# The prior phase: the dump's z dimension and K, and the NeRF steps on its output.
+PRIOR_D_LATENT, PRIOR_K, PRIOR_NERF_STEPS = 32, 20, 5
+# The card's f32 forward (TF32 off) against the CPU's: max abs error over max
+# |output|. Both sum in f32, in other orders and with other convolution
+# algorithms, through the model's full depth of random weights; the CPU tests
+# hold two f32 implementations of the small model to 1e-4, and bf16 differs
+# by ~1e-2.
+PRIOR_F32_TOL = 1e-3
+# bf16 against f32: mean relative difference, tests/test_prior.py's bound on
+# the JAX package's bf16 dump.
+PRIOR_BF16_REL = 0.05
 
 
 def line(tag: str, **fields) -> None:
@@ -927,6 +948,222 @@ def phase_cli(seed: int, train_median_ms: float):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def conv_linear_flops(model, x, z, shifts) -> int:
+    """Operations (2 per multiply-add) of every Conv2d and Linear in one
+    forward of ``model``, counted from their weights and output shapes."""
+    total = [0]
+
+    def count(mod, _inputs, out):
+        total[0] += 2 * mod.weight[0].numel() * out.numel()  # weight[0]: in/groups·kh·kw
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.inference_mode():
+            model(x, z, shifts)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def prior_forward_ms(model, shifts, x, z, reps: int = 5) -> float:
+    with torch.inference_mode():
+        xb, zb = x.expand(z.shape[0], -1, -1, -1), z.to(x.dtype)
+        return cuda_ms(lambda: model(xb, zb, shifts), reps)
+
+
+class DumpProbe:
+    """Times the dump's forward passes (each ends in a copy to the host), its
+    host side per view (resize, polyfit, np.save) and the polyfits within
+    it, without changing them."""
+
+    def __init__(self):
+        self.infer_s, self.write_s, self.fit_s = [], [], []
+        self._patches = [mock.patch.object(prior_dump, name, self._timed(getattr(prior_dump, name),
+                                                                          into))
+                         for name, into in (("infer", self.infer_s), ("write_view", self.write_s),
+                                            ("recover_metric_depth", self.fit_s))]
+
+    @staticmethod
+    def _timed(fn, into):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            into.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def phase_prior(seed: int) -> dict:
+    """The depth prior's inference path, then a NeRF trained on its output.
+    The full-width ResNeXt101-32x8d cIMLE model (v2, d_latent 32) with seeded
+    weights and AdaIn shifts, saved as a reference-format ``.pth`` and
+    ``mean_var_adain.npy`` and loaded back as a user's checkpoint is; on the
+    first view of a ScanNet-shaped scene at the 448 crop: the card's f32
+    forward (TF32 off) against the CPU's on 2 z, and bf16 against f32 on the
+    card on 20 z, with forward times in bf16, f32 with TF32 and f32; then
+    ``python -m scade_tpu_torch.prior.dump`` as a user runs it (K=20 in one
+    set of 20, bf16, the defaults) on the scene's 18 train views, which must
+    write 360 finite (468, 624) float32 files; then the CLI's ``train`` for 5
+    steps on those files, K1 and K2 at 2 launches a step."""
+    tmp = tempfile.mkdtemp(prefix="scade_prior_")
+    cwd = os.getcwd()
+    log = io.StringIO()
+    dev = torch.device("cuda")
+    try:
+        write_scene(tmp, seed)
+        scene_dir = os.path.join(tmp, "scene")
+        cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+        t0 = time.perf_counter()
+        net = prior_model.init_weights_(prior_model.DepthModelCIMLE(cfg, "v2"),
+                                        torch.Generator().manual_seed(seed))
+        ckpt_path, mean_var = os.path.join(tmp, "prior.pth"), os.path.join(tmp, "mv.npy")
+        torch.save({"model_state_dict": net.state_dict()}, ckpt_path)
+        rng = np.random.default_rng(seed)
+        np.save(mean_var, {f"{w}{i}": (0.1 * rng.standard_normal((1, d)) if w == "mean"
+                                       else rng.uniform(0.0, 0.2, (1, d))).astype(np.float32)
+                           for i, d in enumerate(prior_model.encoder_adain_dims(cfg))
+                           for w in ("mean", "var")})
+        cpu_model = prior_dump.build_prior(ckpt_path, device="cpu")
+        loaded_equal = all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
+                                                             cpu_model.state_dict().values()))
+        n_params = sum(p.numel() for p in net.parameters())
+        del net
+        setup_s = time.perf_counter() - t0
+        shifts_cpu = prior_model.load_mean_var_adain(mean_var)
+        shifts = {k: v.to(dev) for k, v in shifts_cpu.items()}
+
+        ds = prior_data.FinetuneDataset(os.path.join(scene_dir, "train"))
+        x_cpu = torch.from_numpy(np.ascontiguousarray(ds[0].rgb.transpose(2, 0, 1)))[None]
+        x = x_cpu.to(dev)
+        zgen = torch.Generator(device=dev).manual_seed(seed)
+        z20 = torch.randn((PRIOR_K, PRIOR_D_LATENT), generator=zgen, device=dev)
+
+        # card f32 (TF32 off) against the CPU's f32, one image, 2 z
+        t0 = time.perf_counter()
+        cpu_out = prior_dump.infer(cpu_model, shifts_cpu, x_cpu, z20[:2].cpu())
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        model = prior_dump.build_prior(ckpt_path, device=dev)
+        with prior_dump.matmul_precision("highest"):
+            card_out = prior_dump.infer(model, shifts, x, z20[:2])
+            f32_20 = prior_dump.infer(model, shifts, x, z20)
+            f32_ms = prior_forward_ms(model, shifts, x, z20)
+        with prior_dump.matmul_precision("high"):
+            tf32_ms = prior_forward_ms(model, shifts, x, z20)
+        f32_err = float(np.abs(card_out - cpu_out).max())
+        f32_scale = float(np.abs(cpu_out).max())
+        flops = conv_linear_flops(model, x.expand(PRIOR_K, -1, -1, -1), z20, shifts)
+
+        # bf16 against f32 on the card, 20 z
+        bf16_shifts = {k: v.bfloat16() for k, v in shifts.items()}
+        model.bfloat16()
+        bf16_20 = prior_dump.infer(model, bf16_shifts, x.bfloat16(), z20)
+        bf16_ms = prior_forward_ms(model, bf16_shifts, x.bfloat16(), z20)
+        bf16_rel = float(np.abs(bf16_20 - f32_20).mean() / np.abs(f32_20).mean())
+        # where the bf16 forward's time goes: the encoder alone (the rest is
+        # the decoder), and the whole in channels_last, which the port does
+        # not use (a layout to weigh against NCHW)
+        encoder_ms = prior_forward_ms(model.encoder_modules, bf16_shifts, x.bfloat16(), z20)
+        encoder_flops = conv_linear_flops(model.encoder_modules, x.expand(PRIOR_K, -1, -1, -1)
+                                          .bfloat16(), z20.bfloat16(), bf16_shifts)
+        model.to(memory_format=torch.channels_last)
+        x_cl = x.bfloat16().contiguous(memory_format=torch.channels_last)
+        cl_rel = float(np.abs(prior_dump.infer(model, bf16_shifts, x_cl, z20) - bf16_20).mean()
+                       / np.abs(bf16_20).mean())
+        cl_ms = prior_forward_ms(model, bf16_shifts, x_cl, z20)
+        del model
+        torch.cuda.empty_cache()
+
+        # the dump as a user runs it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with DumpProbe() as probe, contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            out_dir = prior_dump.main(["--scene_dir", scene_dir, "--ckpt", ckpt_path,
+                                       "--mean_var", mean_var, "--dump_dir", "prior",
+                                       "--num_hypothesis", str(PRIOR_K), "--mini_batch_size",
+                                       str(PRIOR_K), "--seed_num", str(seed)])
+            dump_s = time.perf_counter() - t0
+        dump_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        names = sorted(os.listdir(out_dir))
+        expect = sorted(f"{i}_{k}.npy" for i in range(N_TRAIN) for k in range(PRIOR_K))
+        arrays = [np.load(os.path.join(out_dir, n)) for n in names]
+        files_ok = names == expect and all(
+            a.shape == (H, W) and a.dtype == np.float32 and np.isfinite(a).all() for a in arrays)
+        hyp_range = (float(min(a.min() for a in arrays)), float(max(a.max() for a in arrays)))
+        del arrays
+
+        # prior → NeRF: the CLI trains on what the dump wrote
+        os.chdir(tmp)
+        with CliProbe() as train, contextlib.redirect_stdout(log):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main("scannet", ["train", "--data_dir", tmp, "--scene_id", "scene",
+                                 "--ckpt_dir", "ckpt", "--expname", "prior", "--cimle_dir", "prior",
+                                 "--num_hypothesis", str(PRIOR_K), "--seed", str(seed),
+                                 "--num_iterations", str(PRIOR_NERF_STEPS), "--i_weights",
+                                 "1000000", "--i_img", "1000000", "--i_print", "1000000"])
+            torch.cuda.synchronize()
+            nerf_s = time.perf_counter() - t0
+        losses = [float(v) for v in train.losses]
+        steps_ok = len(train.step_launches) == PRIOR_NERF_STEPS and all(
+            d == {"k1": 2, "k2": 2} for d in train.step_launches)
+        finite = all(math.isfinite(v) for v in losses)
+
+        checks = {"checkpoint reloads bit-equal": loaded_equal,
+                  "card f32 against CPU f32": f32_err <= PRIOR_F32_TOL * f32_scale,
+                  "bf16 against f32": bf16_rel < PRIOR_BF16_REL,
+                  "finite forward": bool(np.isfinite(f32_20).all() and np.isfinite(bf16_20).all()),
+                  "360 hypothesis files": files_ok,
+                  "NeRF launches per step": steps_ok, "NeRF finite loss": finite}
+        n_views = len(probe.write_s)
+        line("prior", backbone="resnext101_32x8d", version="v2", d_latent=PRIOR_D_LATENT,
+             crop=448, K=PRIOR_K, params=n_params, setup_s=setup_s,
+             f32_vs_cpu=dict(max_abs_err=f32_err, max_abs_out=f32_scale,
+                             tol_rel_to_max=PRIOR_F32_TOL, z=2, cpu_s=cpu_s),
+             bf16_vs_f32=dict(mean_rel_diff=bf16_rel, tol=PRIOR_BF16_REL, z=PRIOR_K),
+             forward_ms_per_image=dict(bf16=bf16_ms, f32_tf32=tf32_ms, f32=f32_ms),
+             bf16_encoder_ms_per_image=encoder_ms, bf16_channels_last_ms_per_image=cl_ms,
+             bf16_channels_last_mean_rel_diff=cl_rel,
+             gflop_per_image=flops / 1e9, encoder_gflop_per_image=encoder_flops / 1e9,
+             bound_ms=dict(bf16=flops / PEAK_BF16 * 1e3, tf32=flops / PEAK_TF32 * 1e3,
+                           f32=flops / PEAK_F32 * 1e3),
+             dump=dict(command_s=dump_s, views=n_views, files=len(names),
+                       forward_s_per_view=sum(probe.infer_s) / n_views,
+                       forward_s_first_view=probe.infer_s[0],
+                       forward_s_per_view_after_first=statistics.median(probe.infer_s[1:]),
+                       host_s_per_view=sum(probe.write_s) / n_views,
+                       host_s_per_view_median=statistics.median(probe.write_s),
+                       polyfit_s_per_view=sum(probe.fit_s) / n_views,
+                       peak_gb=dump_peak_gb, hypothesis_range=hyp_range),
+             nerf=dict(steps=PRIOR_NERF_STEPS, command_s=nerf_s, loss_first=losses[0],
+                       loss_last=losses[-1], launches_per_step=train.step_launches,
+                       scene_load_s=train.load_s[0]),
+             checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"prior: failed {bad}")
+        return checks
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -954,6 +1191,8 @@ def main() -> int:
     del state, scene
     torch.cuda.empty_cache()
     cli_launches = phase_cli(args.seed, train_median_ms)
+    torch.cuda.empty_cache()
+    phase_prior(args.seed)
 
     # launches: the CLI's train run (20 steps and 6 rendered views), the main
     # path as a user drives it; launches_train_phase: the bare train phase's

@@ -21,6 +21,9 @@ The package mirrors scade_tpu's module layout (``scade_tpu/X/y.py`` is
 - ``cli``      — ``python -m scade_tpu_torch train|test``, the reference
   runner's CLI.
 - ``convert``  — weights between the JAX params layout and the state_dict.
+- ``prior``    — the cIMLE depth prior's inference path: the ResNeXt101
+  cIMLE model, its checkpoints, and ``python -m scade_tpu_torch.prior.dump``
+  (also ``dump_wild``, ``demo``), which writes the hypotheses ``train`` reads.
 
 Entry points run on ``RenderConfig.device`` (the CLI's ``--device``): ``cuda``
 unless the caller asks for the CPU. The

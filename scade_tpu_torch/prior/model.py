@@ -1,0 +1,231 @@
+"""The cIMLE-conditioned monocular depth model, encoder-side variant.
+
+Encoder: a ResNeXt101-32x8d (or another zoo backbone) feature pyramid with
+AdaIn(z) after conv1 and after layer1/2/3 (reference:
+ambiguity_aware_prior/lib/models/Resnext_torch.py:336-508 and :592-768 for
+the image-conditioned v3 taps). Decoder: the LeReS top-down refinement
+(network_auxi.py:173-231). The counterpart of ``scade_tpu/prior/model.py``.
+
+The modules are named as the reference's state_dict is
+(``encoder_modules.*``, ``decoder_modules.*``), so a reference checkpoint
+loads with ``load_state_dict(strict=True)`` once ``convert.strip_prefixes``
+has removed its wrapper prefixes. The AdaIn dataset statistics (the mean/var
+shifts of ``mean_var_adain.npy``) enter the forward as an explicit dict of
+tensors, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scade_tpu_torch.prior.blocks import (
+    AO,
+    FFM,
+    FTB,
+    AdaIn,
+    AdaInV2,
+    BasicBlock,
+    Bottleneck,
+    upsample_align_corners,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorConfig:
+    d_latent: int = 32
+    layers: Sequence[int] = (3, 4, 23, 3)  # ResNeXt101
+    groups: int = 32
+    base_width: int = 8
+    block: str = "bottleneck"  # "bottleneck" (50/101/152/X101) | "basic" (18/34)
+    bottleneck_dims: Sequence[int] = (256, 512, 1024, 2048)
+    lateral_out: Sequence[int] = (512, 256, 256, 256)  # cfg.MODEL.LATERAL_OUT
+    small: bool = False  # tiny variant for tests
+
+    @property
+    def expansion(self) -> int:
+        return 1 if self.block == "basic" else 4
+
+    def with_small(self):
+        """A shape-compatible small model (layers [1, 1, 1, 1], full widths)."""
+        return dataclasses.replace(self, layers=(1, 1, 1, 1), small=True)
+
+
+# The reference encoder zoo (network_auxi.py:16-50, Resnet.py,
+# Resnext_torch.py): (layers, groups, base_width, block).
+_BACKBONES = {
+    "resnet18": ((2, 2, 2, 2), 1, 64, "basic"),
+    "resnet34": ((3, 4, 6, 3), 1, 64, "basic"),
+    "resnet50": ((3, 4, 6, 3), 1, 64, "bottleneck"),
+    "resnet101": ((3, 4, 23, 3), 1, 64, "bottleneck"),
+    "resnet152": ((3, 8, 36, 3), 1, 64, "bottleneck"),
+    "resnext101_32x8d": ((3, 4, 23, 3), 32, 8, "bottleneck"),
+}
+
+
+def backbone_config(name: str = "resnext101_32x8d", d_latent: int = 32,
+                    **overrides) -> PriorConfig:
+    """PriorConfig for a named reference backbone."""
+    layers, groups, base_width, block = _BACKBONES[name]
+    exp = 1 if block == "basic" else 4
+    dims = tuple(p * exp for p in (64, 128, 256, 512))
+    return PriorConfig(d_latent=d_latent, layers=layers, groups=groups, base_width=base_width,
+                       block=block, bottleneck_dims=dims, **overrides)
+
+
+def encoder_adain_dims(cfg: PriorConfig):
+    """Channels at the 4 encoder AdaIn taps: after conv1 (64) and after
+    layer1/2/3."""
+    return (64,) + tuple(p * cfg.expansion for p in (64, 128, 256))
+
+
+def zero_shifts(cfg: PriorConfig) -> Dict[str, torch.Tensor]:
+    out = {}
+    for i, d in enumerate(encoder_adain_dims(cfg)):
+        out[f"mean{i}"] = torch.zeros(d)
+        out[f"var{i}"] = torch.zeros(d)
+    return out
+
+
+def load_mean_var_adain(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """Read a reference-format ``mean_var_adain.npy`` (a pickled dict of
+    arrays; tools/utils.py:222-245) as float32 tensors."""
+    d = np.load(path, allow_pickle=True).item()
+    return {k: torch.as_tensor(np.asarray(v, np.float32).squeeze(), device=device)
+            for k, v in d.items()}
+
+
+class ResNeXtCIMLE(nn.Module):
+    """4-level feature pyramid (1/4 … 1/32) with AdaIn taps.
+
+    ``adain_version`` "v2": z-only AdaIn MLPs; "v3": image-conditioned
+    AdaInV2. ``use_adain=False``: the plain backbone (z and shifts unused).
+    """
+
+    def __init__(self, cfg: PriorConfig, use_adain: bool = True, adain_version: str = "v2"):
+        super().__init__()
+        self.cfg, self.use_adain, self.adain_version = cfg, use_adain, adain_version
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        if use_adain:
+            for i, ch in enumerate(encoder_adain_dims(cfg)):
+                mod = (AdaInV2(cfg.d_latent, ch) if adain_version == "v3"
+                       else AdaIn(cfg.d_latent, ch))
+                self.add_module(f"style_mod{i}", mod)
+        inplanes = 64
+        for li, (planes, stride) in enumerate(zip((64, 128, 256, 512), (1, 2, 2, 2))):
+            out_ch = planes * cfg.expansion
+            blocks = []
+            for b in range(cfg.layers[li]):
+                s = stride if b == 0 else 1
+                has_ds = b == 0 and (s != 1 or inplanes != out_ch)
+                if cfg.block == "basic":
+                    blocks.append(BasicBlock(inplanes, planes, s, has_ds))
+                else:
+                    blocks.append(Bottleneck(inplanes, planes, s, cfg.groups, cfg.base_width,
+                                             has_ds))
+                inplanes = out_ch
+            self.add_module(f"layer{li + 1}", nn.Sequential(*blocks))
+
+    def _style(self, i, h, z, input_image, shifts):
+        if not self.use_adain:
+            return h
+        mod = getattr(self, f"style_mod{i}")
+        if self.adain_version == "v3":
+            return mod(h, z, input_image, shifts[f"mean{i}"], shifts[f"var{i}"])
+        return mod(h, z, shifts[f"mean{i}"], shifts[f"var{i}"])
+
+    def forward(self, x, z=None, shifts=None):
+        input_image = x
+        x = self._style(0, self.conv1(x), z, input_image, shifts)
+        x = F.max_pool2d(F.relu(self.bn1(x)), 3, 2, 1)
+        features = []
+        for li in range(4):
+            x = getattr(self, f"layer{li + 1}")(x)
+            if li < 3:
+                x = self._style(li + 1, x, z, input_image, shifts)
+            features.append(x)
+        return features
+
+
+class Decoder(nn.Module):
+    """LeReS top-down decoder: FTB on the 1/32 map, three FFMs, AO."""
+
+    def __init__(self, cfg: PriorConfig):
+        super().__init__()
+        inch = list(cfg.bottleneck_dims)
+        mid = list(cfg.lateral_out[::-1])  # [256, 256, 256, 512]
+        self.conv = FTB(inch[3], mid[3])
+        self.conv1 = nn.Conv2d(mid[3], mid[2], 3, padding=1)
+        self.ffm2 = FFM(inch[2], mid[2], mid[2])
+        self.ffm1 = FFM(inch[1], mid[1], mid[1])
+        self.ffm0 = FFM(inch[0], mid[0], mid[0])
+        self.outconv = AO(mid[0])
+
+    def forward(self, features):
+        x_16 = upsample_align_corners(self.conv1(self.conv(features[3])), 2)
+        x_8 = self.ffm2(features[2], x_16)
+        x_4 = self.ffm1(features[1], x_8)
+        return self.outconv(self.ffm0(features[0], x_4))
+
+
+class DepthModelCIMLE(nn.Module):
+    """encoder(x, z) → decoder → (B, 1, H, W) depth logit. ``version``: "v2"
+    (z-MLP AdaIn, the shipped path) or "v3" (image-conditioned AdaInV2)."""
+
+    def __init__(self, cfg: PriorConfig, version: str = "v2"):
+        super().__init__()
+        if version not in ("v2", "v3"):
+            raise ValueError(f"encoder cIMLE supports version v2/v3, got {version!r}")
+        self.cfg, self.version = cfg, version
+        self.encoder_modules = ResNeXtCIMLE(cfg, adain_version=version)
+        self.decoder_modules = Decoder(cfg)
+
+    def forward(self, x, z, shifts):
+        return self.decoder_modules(self.encoder_modules(x, z, shifts))
+
+
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded weights in place: conv and linear weights lecun-normal (the JAX
+    package's init), biases 0, BN scale/bias 1/0 and running statistics drawn
+    around 0 and 1, so eval-mode BN does not reduce to the identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=generator))
+                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=generator))
+    return model
+
+
+def prior_apply(model: DepthModelCIMLE, shifts: Dict[str, torch.Tensor], x: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """Eval-mode forward. x: (B, 3, H, W) normalized rgb; z: (B, d_latent).
+    Returns (B, 1, H, W)."""
+    if model.training:
+        raise ValueError("prior_apply runs the model in eval mode: call model.eval() first")
+    return model(x, z, shifts)
+
+
+def prior_inference(model: DepthModelCIMLE, shifts, x, z, rescaled: bool = False,
+                    ) -> torch.Tensor:
+    """The raw decoder logit (RelDepthModel_cIMLE.inference, :84-113);
+    ``rescaled`` applies depth − min + 0.01."""
+    depth = prior_apply(model, shifts, x, z)
+    if rescaled:
+        depth = depth - depth.min() + 0.01
+    return depth
+
