@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (scade_tpu_torch) on one NVIDIA card and checks it.
 
-    python3 chip_smoke.py [--seed N] [--steps N] [--k1-only]
+    python3 chip_smoke.py [--seed N] [--steps N] [--k1-only | --dp-only N]
 
 Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
 at once), then prints one line per phase (with --k1-only the first two, for
@@ -31,11 +31,24 @@ comparing K1 builds of two trees on one card):
   render  a full 468x624 val view through render_image, f32 and bf16
   cli     the port's CLI as a user runs it (python -m scade_tpu_torch): a
           ScanNet-shaped scene written to a temporary directory (18 train + 2
-          val + 2 test views at 468x624, PNGs, K=20 .npy hypotheses), then
-          `train` for 20 steps at the reference defaults with .tar files at
-          10 and 20 and the i_img renders at 20, then `test`; K1 and K2 must
-          launch 2 per step and 36 per view, the .tar reload bit-equal and the
-          two metrics.txt agree
+          val + 2 test views at 468x624, PNGs, K=20 .npy hypotheses, 6 video
+          poses), then `train` for 20 steps at the reference defaults with
+          .tar files at 10 and 20 and the i_img renders at 20, then `test`;
+          K1 and K2 must launch 2 per step and 36 per view, the .tar reload
+          bit-equal, the two metrics.txt agree, and the hypotheses load
+          through the native library (`train`) and then from its blob (`test`)
+  tasks   on the cli phase's scene and run: `test_opt` (its metrics those of
+          `test`), `video` (2 frames of 468x276, 16 K1 + 16 K2 launches a
+          frame, a file that decodes to 2 frames), then `train --input_ch_cam
+          4` for 5 steps (0 K1 + 2 K2 a step) and `test_opt` fitting a camera
+          latent per test view (2 finite latent files)
+  wild    `python -m scade_tpu_torch.wild train --mask_edges true` on the
+          scene read as a processed (wild) scene, 10 steps, then wild `test`
+  dp      data parallelism: `train --multihost` on 2 ranks (torchrun; NCCL
+          with a card a rank, else gloo on the one card) for 5 steps, held to
+          1 rank run twice (the card's run-to-run spread is the witness: the
+          first step's loss and gradients, the parameters' median distance),
+          the ranks' parameters bit-equal, then a sharded `test` against 1 rank
   prior   the depth prior's inference path: the full-width ResNeXt101-32x8d
           cIMLE model (seeded weights, saved as a reference-format .pth and
           loaded back) at the 448 crop, the card's f32 against the CPU's and
@@ -47,7 +60,9 @@ comparing K1 builds of two trees on one card):
 then the kernels line (one JSON object per kernel: launches in the cli
 phase's train run, error, times and bound), the card's name and power limit, and last
 a JSON line naming the device. Exits non-zero, with no result line, when
-there is no CUDA device or any phase fails. Needs one card.
+there is no CUDA device or any phase fails. Needs one card. With --dp-only N
+it runs the device phase and then the dp phase on N ranks (NCCL where there
+are N cards) and prints no result line.
 """
 
 from __future__ import annotations
@@ -70,7 +85,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from scade_tpu_torch import _kernels, cli
+from scade_tpu_torch import _kernels, cli, wild
 from scade_tpu_torch.data import image_io
 from scade_tpu_torch.data import scene as scene_io
 from scade_tpu_torch.eval import evaluate
@@ -87,6 +102,7 @@ from scade_tpu_torch.render.renderer import (
     render_rays,
 )
 from scade_tpu_torch.train import loop
+from scade_tpu_torch.train import step as train_step
 from scade_tpu_torch.train.step import (
     SceneTensors,
     TrainConfig,
@@ -153,6 +169,28 @@ PRIOR_F32_TOL = 1e-3
 # bf16 against f32: mean relative difference, tests/test_prior.py's bound on
 # the JAX package's bf16 dump.
 PRIOR_BF16_REL = 0.05
+# Video poses in write_scene's scene: the video task renders every 3rd.
+N_VIDEO = 6
+# Two runs of one program on the card agree in metrics.txt to this, relative
+# (a render is deterministic; only training is not).
+METRICS_REL = 1e-6
+# The dp phase: 2 ranks against 1, each train run this many steps. Training on
+# the card is not bit-reproducible from run to run (atomics in the backward),
+# so the 2-rank run is held to the larger of DP_SPREAD_RATIO times the
+# distance between two 1-rank runs and DP_REL of the magnitude: the first
+# step's loss and the first step's gradients, summed over the ranks (all runs
+# start from the same parameters on the same batch, so only the order of the
+# sums differs; Adam is blind to the gradients' scale, so only they show a
+# wrong 1/world), and the parameters after DP_STEPS steps by the median of
+# their distances. Not by the largest: Adam moves a parameter by about lr
+# whatever its gradient's size, so a gradient near zero whose sign an f32
+# reordering flips moves it by ~2 lr = 1e-3 in one run against the other.
+# Such flips come from the atomics in one rank's backward and, in 2 ranks,
+# from every sum over the batch taken in two halves; their largest distance
+# is a count of flips, not an error. The later steps' losses drift apart for
+# the same reason and are printed, not held.
+DP_STEPS, DP_SPREAD_RATIO, DP_REL = 5, 2.0, 1e-5
+SCRIPT = os.path.abspath(__file__)
 
 
 def line(tag: str, **fields) -> None:
@@ -704,7 +742,8 @@ def write_scene(root: str, seed: int) -> dict:
     depth and target_depth PNGs, written by the port's own PNG encoder whether
     or not cv2 exists, so the load reads the codec's files back, through cv2
     where it is installed), K=20 ``leres_cimle/dump/<img>_<k>.npy``
-    hypotheses per train view and a ``transforms_<split>.json`` per split."""
+    hypotheses per train view, 6 video poses and a ``transforms_<split>.json``
+    per split."""
     rng = np.random.default_rng(seed)
     base = os.path.join(root, "scene")
     for sub in ("train/rgb", "train/depth", "train/target_depth", "train/leres_cimle/dump"):
@@ -713,6 +752,13 @@ def write_scene(root: str, seed: int) -> dict:
     splits = {"train": N_TRAIN, "val": N_VAL, "test": N_TEST}
     n = sum(splits.values())
     angles = np.linspace(0.0, 2 * np.pi, n, endpoint=False) + rng.uniform(0, 0.1, n)
+    # the video trajectory: poses only (no image files), between the views
+    video = [{"file_path": "", "depth_file_path": "", "fx": 577.9, "fy": 577.9, "cx": 312.0,
+              "cy": 234.0, "transform_matrix": look_at(np.array(
+                  [2.5 * np.cos(a), 0.4, 2.5 * np.sin(a)])).tolist()}
+             for a in np.linspace(0.0, 2 * np.pi, N_VIDEO, endpoint=False) + np.pi / n]
+    with open(os.path.join(base, "transforms_video.json"), "w") as fp:
+        json.dump({"frames": video}, fp)
     k = 0
     for split, count in splits.items():
         frames = []
@@ -738,19 +784,25 @@ def write_scene(root: str, seed: int) -> dict:
             meta.update(near=near, far=far, depth_scaling_factor=dsf)
         with open(os.path.join(base, f"transforms_{split}.json"), "w") as fp:
             json.dump(meta, fp)
-    return {"views": n, "hyps_gb": N_TRAIN * K_HYP * H * W * 4 / 1e9}
+    return {"views": n, "video_poses": N_VIDEO, "hyps_gb": N_TRAIN * K_HYP * H * W * 4 / 1e9}
 
 
 class CliProbe:
     """Watches the CLI's run without changing it: the kernel launches and a
     CUDA event after every train step (no synchronize), each step's loss
-    tensor, the launches of every rendered view, the wall time of the eval
-    path's renders (which end in copies to the host) and of the scene load."""
+    tensor and TrainConfig, the launches and wall time of every rendered
+    view (a video frame's render ends in copies to the host), the wall time
+    of the eval path's renders (which end in copies to the host), of each
+    camera-latent fit (ends in a copy to the host) and of the scene load,
+    and how the hypotheses were read. With ``first_grads`` it also keeps a
+    host copy of the first train step's gradients, as the step applies them
+    (under ranks: summed over the ranks)."""
 
-    def __init__(self):
-        self.step_launches, self.view_launches = [], []
-        self.events, self.host_ms, self.losses = [], [], []
-        self.eval_s, self.eval_views, self.load_s = 0.0, 0, []
+    def __init__(self, first_grads: bool = False):
+        self.step_launches, self.view_launches, self.view_s = [], [], []
+        self.events, self.host_ms, self.losses, self.configs = [], [], [], []
+        self.eval_s, self.eval_views, self.load_s, self.hyp_load = 0.0, 0, [], []
+        self.fit_s, self.first_grads = [], None
         self._patches = [
             mock.patch.object(loop, "make_train_step", self._wrap_make_train_step(
                 loop.make_train_step)),
@@ -762,7 +814,14 @@ class CliProbe:
                 evaluate.render_images_with_metrics)),
             mock.patch.object(scene_io, "load_scene_scannet", self._wrap_load(
                 scene_io.load_scene_scannet)),
+            mock.patch.object(scene_io, "load_scene_processed", self._wrap_load(
+                scene_io.load_scene_processed)),
+            mock.patch.object(evaluate, "optimize_camera_embedding", self._wrap_fit(
+                evaluate.optimize_camera_embedding)),
         ]
+        if first_grads:
+            self._patches.append(mock.patch.object(train_step, "apply_grads", self._wrap_apply(
+                train_step.apply_grads)))
 
     def __enter__(self):
         for p in self._patches:
@@ -776,6 +835,7 @@ class CliProbe:
     def _wrap_make_train_step(self, make):
         def made(*args, **kwargs):
             step_fn = make(*args, **kwargs)
+            self.configs.append(args[1])  # the TrainConfig
 
             def step(*a, **kw):
                 before, t0 = counts(), time.perf_counter()
@@ -792,10 +852,22 @@ class CliProbe:
             return step
         return made
 
+    def _wrap_apply(self, apply):
+        def wrapped(state, grads, g_scales, g_shifts, *args, **kwargs):
+            if self.first_grads is None:
+                wrt = state.nerf_params() + [state.scales, state.shifts]
+                self.first_grads = torch.cat([
+                    (torch.zeros_like(p) if g is None else g.detach()).flatten().cpu()
+                    for g, p in zip((*grads, g_scales, g_shifts), wrt)])
+            return apply(state, grads, g_scales, g_shifts, *args, **kwargs)
+        return wrapped
+
     def _wrap_render_image(self, render):
         def wrapped(*args, **kwargs):
-            before = counts()
+            before, t0 = counts(), time.perf_counter()
             out = render(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.view_s.append(time.perf_counter() - t0)
             after = counts()
             self.view_launches.append({k: after[k] - before[k] for k in after})
             return out
@@ -815,6 +887,15 @@ class CliProbe:
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self.load_s.append(time.perf_counter() - t0)
+            self.hyp_load.append(out.hypothesis_load)
+            return out
+        return wrapped
+
+    def _wrap_fit(self, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.fit_s.append(time.perf_counter() - t0)
             return out
         return wrapped
 
@@ -829,18 +910,30 @@ def read_metrics(path: str) -> dict:
         return {k: float(v) for k, v in (line.split(": ") for line in f.read().splitlines())}
 
 
-def phase_cli(seed: int, train_median_ms: float):
+def cli_common(tmp: str, seed: int, expname: str = "cli") -> list:
+    return ["--data_dir", tmp, "--scene_id", "scene", "--ckpt_dir", "ckpt", "--expname", expname,
+            "--cimle_dir", "dump", "--num_hypothesis", str(K_HYP), "--seed", str(seed)]
+
+
+def metrics_agree(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(
+        (math.isnan(x) and math.isnan(y)) or math.isclose(x, y, rel_tol=METRICS_REL, abs_tol=0.0)
+        for x, y in zip(a.values(), b.values()))
+
+
+def phase_cli(tmp: str, seed: int, train_median_ms: float):
     """The port's CLI as a user runs it: ``train`` for 20 steps at the
     reference defaults (64+128 samples, 8x256, N_rand 1024, f32, kernels on)
     on a ScanNet-shaped scene read from disk, a .tar at steps 10 and 20, the
     i_img renders at 20 (2 train + 2 val views) and the final test render (2
-    views), then ``test`` from the newest .tar. Everything goes to a
-    temporary directory (the TB root is relative to the working directory,
-    so the phase runs there). Fails unless K1 and K2 launch 2 per step and 36
-    per view, the losses are finite, the .tar reloads to the trained
-    parameters and Adam state exactly, both metrics.txt agree, and i_img
-    wrote its TB/JSONL entries."""
-    tmp = tempfile.mkdtemp(prefix="scade_cli_")
+    views), then ``test`` from the newest .tar. Everything goes to ``tmp``
+    (the TB root is relative to the working directory, so the phase runs
+    there), which the later phases reuse. Fails unless K1 and K2 launch 2
+    per step and 36 per view, the losses are finite, the .tar reloads to the
+    trained parameters and Adam state exactly, both metrics.txt agree, i_img
+    wrote its TB/JSONL entries, and the hypotheses were read through the
+    native library and then from the blob it wrote. Returns the train run's
+    launches and the test metrics."""
     cwd = os.getcwd()
     log = io.StringIO()
     try:
@@ -848,9 +941,7 @@ def phase_cli(seed: int, train_median_ms: float):
         scene = write_scene(tmp, seed)
         write_s = time.perf_counter() - t0
         os.chdir(tmp)
-        common = ["--data_dir", tmp, "--scene_id", "scene", "--ckpt_dir", "ckpt",
-                  "--expname", "cli", "--cimle_dir", "dump", "--num_hypothesis", str(K_HYP),
-                  "--seed", str(seed)]
+        common = cli_common(tmp, seed)
         with CliProbe() as train, contextlib.redirect_stdout(log):
             torch.cuda.synchronize()
             reset_counts()
@@ -900,9 +991,9 @@ def phase_cli(seed: int, train_median_ms: float):
 
         keys_ok = list(train_metrics) == list(test_metrics) == [
             "img_loss", "psnr", "ssim", "lpips", "img_loss0", "psnr0", "depth_rmse"]
-        agree = keys_ok and all(
-            (math.isnan(a) and math.isnan(b)) or math.isclose(a, b, rel_tol=1e-6, abs_tol=0.0)
-            for a, b in zip(train_metrics.values(), test_metrics.values()))
+        agree = keys_ok and metrics_agree(train_metrics, test_metrics)
+        hyp_load = dict(train=train.hyp_load[0], test=test.hyp_load[0])
+        native = hyp_load == dict(train="npy:native", test="blob:native")
         finite_metrics = all(math.isfinite(test_metrics[k]) for k in ("psnr", "ssim",
                                                                       "depth_rmse"))
         with open(os.path.join("runs", "cli", "scalars.jsonl")) as f:
@@ -931,21 +1022,371 @@ def phase_cli(seed: int, train_median_ms: float):
              loss_first=losses[0], loss_last=losses[-1], finite=finite, tar_bit_equal=tar_ok,
              metrics_train=train_metrics, metrics_test=test_metrics, metrics_agree=agree,
              metrics_finite=finite_metrics, tb_entries_ok=tb_ok, result_files=files,
-             cv2_installed=image_io.jpeg_available())
+             cv2_installed=image_io.jpeg_available(), hypothesis_load=hyp_load,
+             hypothesis_load_native=native)
         bad = [name for name, ok in (("launches per step", steps_ok),
                                      ("launches per view", views_ok), ("finite losses", finite),
                                      (".tar reload", tar_ok), ("metrics.txt agree", agree),
                                      ("finite metrics", finite_metrics),
-                                     ("i_img TB entries", tb_ok)) if not ok]
+                                     ("i_img TB entries", tb_ok),
+                                     ("native hypothesis load, then its blob", native)) if not ok]
         if bad:
             raise RuntimeError(f"cli: failed {bad}")
-        return train_launches
+        return train_launches, test_metrics
     except Exception:
         sys.stderr.write(log.getvalue()[-20000:])
         raise
     finally:
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def video_frames(path: str) -> int:
+    """Frames that cv2 decodes from a video file."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_tasks(tmp: str, seed: int, test_metrics: dict) -> dict:
+    """The tasks test_opt and video, on the cli phase's scene and run
+    (``ckpt/cli/000020.tar``), at the reference defaults: ``test_opt`` (no
+    camera latent, so it renders as ``test`` does: its metrics.txt must
+    equal the cli phase's ``test`` within METRICS_REL); ``video`` (every 3rd
+    of the 6 video poses: 2 frames of 468x276, 8 chunks, so 16 K1 and 16 K2
+    launches a frame, and a file that decodes to 2 frames); then ``train
+    --input_ch_cam 4`` for 5 steps (K1 does not serve a network with a
+    camera latent, as in the JAX package: 0 K1 and 2 K2 a step) and its
+    ``test_opt``, which fits a latent per test view (100 Adam steps on 2,048
+    pixels each) and writes 2 finite latent files."""
+    cwd = os.getcwd()
+    log = io.StringIO()
+    chunks_per_frame = -(-H * (int(H / 9.0 * 16.0 / 3.0) // 2 * 2) // RENDER_CHUNK)
+    try:
+        os.chdir(tmp)
+        common = cli_common(tmp, seed)
+        with CliProbe() as opt, contextlib.redirect_stdout(log):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main("scannet", ["test_opt", *common])
+            torch.cuda.synchronize()
+            opt_s = time.perf_counter() - t0
+            opt_launches = counts()
+        opt_metrics = read_metrics(os.path.join(
+            "ckpt", "cli", "test_images_with_optimization_scene", "metrics.txt"))
+
+        with CliProbe() as vid, contextlib.redirect_stdout(log):
+            reset_counts()
+            t0 = time.perf_counter()
+            video_file = cli.main("scannet", ["video", *common])
+            torch.cuda.synchronize()
+            video_s = time.perf_counter() - t0
+            video_launches = counts()
+        frames = sorted(os.listdir(os.path.join("ckpt", "cli", "video_0")))
+        decoded = video_frames(video_file)
+
+        cam = cli_common(tmp, seed, "cam") + ["--input_ch_cam", "4"]
+        with CliProbe() as cam_train, contextlib.redirect_stdout(log):
+            reset_counts()
+            cli.main("scannet", ["train", *cam, "--num_iterations", "5", "--i_weights", "5",
+                                 "--i_img", "1000000", "--i_print", "1000000"])
+            torch.cuda.synchronize()
+            cam_train_launches = counts()
+        with CliProbe() as cam_opt, contextlib.redirect_stdout(log):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main("scannet", ["test_opt", *cam])
+            torch.cuda.synchronize()
+            cam_opt_s = time.perf_counter() - t0
+            cam_opt_launches = counts()
+        latent_dir = os.path.join("ckpt", "cam", "test_latent_codes_scene")
+        latents = {n: np.loadtxt(os.path.join(latent_dir, n)) for n in sorted(os.listdir(latent_dir))}
+
+        per_view = {"k1": 2 * (-(-H * W // RENDER_CHUNK)), "k2": 2 * (-(-H * W // RENDER_CHUNK))}
+        per_frame = {"k1": 2 * chunks_per_frame, "k2": 2 * chunks_per_frame}
+        checks = {
+            "test_opt metrics equal test's": metrics_agree(opt_metrics, test_metrics),
+            "test_opt launches": opt_launches == {k: N_TEST * v for k, v in per_view.items()},
+            "video frames": frames == ["0.jpg", "3.jpg"] and decoded == 2,
+            "video launches per frame": (len(vid.view_launches) == 2 and all(
+                d == per_frame for d in vid.view_launches) and video_launches["k1"] > 0),
+            "latent train launches per step": len(cam_train.step_launches) == 5 and all(
+                d == {"k1": 0, "k2": 2} for d in cam_train.step_launches),
+            "latent train finite loss": all(math.isfinite(float(v)) for v in cam_train.losses),
+            "latent files": list(latents) == ["0.txt", "1.txt"] and all(
+                v.shape == (4,) and np.isfinite(v).all() for v in latents.values()),
+            "latent test_opt launches": cam_opt_launches["k1"] == 0 and cam_opt_launches["k2"] > 0,
+        }
+        line("tasks", test_opt=dict(command_s=opt_s, s_per_view=opt.eval_s / opt.eval_views,
+                                    launches=opt_launches, metrics=opt_metrics),
+             video=dict(command_s=video_s, frames=len(frames), decoded_frames=decoded,
+                        file=os.path.basename(video_file), H=H,
+                        W=int(H / 9.0 * 16.0 / 3.0) // 2 * 2, chunks_per_frame=chunks_per_frame,
+                        s_per_frame=vid.view_s, launches_per_frame=vid.view_launches,
+                        launches=video_launches, ffmpeg=shutil.which("ffmpeg") is not None),
+             latent=dict(input_ch_cam=4, train_steps=5,
+                         train_launches_per_step=cam_train.step_launches[0],
+                         train_launches=cam_train_launches,
+                         train_loss_last=float(cam_train.losses[-1]),
+                         test_opt_command_s=cam_opt_s, fit_s_per_image=cam_opt.fit_s,
+                         render_s_per_view=cam_opt.eval_s / cam_opt.eval_views,
+                         test_opt_launches=cam_opt_launches,
+                         latents={k: v.tolist() for k, v in latents.items()}),
+             checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"tasks: failed {bad}")
+        return checks
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+    finally:
+        os.chdir(cwd)
+
+
+def phase_wild(tmp: str, seed: int) -> dict:
+    """The wild runner as a user runs it (``python -m scade_tpu_torch.wild``,
+    through its main): the cli phase's 468x624, K=20 scene read as a
+    processed scene (no GT depth), ``train --mask_edges true`` for 10 steps
+    (the RGB loss masked by the edge mask, scalars under
+    ``runs_prior_corrected/``), then ``test``."""
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        os.chdir(tmp)
+        common = cli_common(tmp, seed, "wild")
+        with CliProbe() as train, contextlib.redirect_stdout(log):
+            reset_counts()
+            t0 = time.perf_counter()
+            wild.main_wild(["train", *common, "--mask_edges", "true", "--num_iterations", "10",
+                            "--i_weights", "10", "--i_print", "5", "--i_img", "1000000"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_launches = counts()
+        result = os.path.join("ckpt", "wild", "test_images_scene", "metrics.txt")
+        train_metrics = read_metrics(result)
+        with CliProbe() as test, contextlib.redirect_stdout(log):
+            reset_counts()
+            cli_s = time.perf_counter()
+            wild.main_wild(["test", *common])
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - cli_s
+            test_launches = counts()
+        test_metrics = read_metrics(result)
+        losses = [float(v) for v in train.losses]
+        tc = train.configs[0]
+        scalars = os.path.join("runs_prior_corrected", "wild", "scalars.jsonl")
+        per_view = 2 * (-(-H * W // RENDER_CHUNK))
+        checks = {
+            "launches per step": len(train.step_launches) == 10 and all(
+                d == {"k1": 2, "k2": 2} for d in train.step_launches),
+            "finite losses": all(math.isfinite(v) for v in losses),
+            "edge mask and masked RGB loss": tc.mask_edges and tc.mask_rgb,
+            "runs_prior_corrected scalars": os.path.exists(scalars),
+            "test launches": test_launches == {"k1": N_TEST * per_view, "k2": N_TEST * per_view},
+            "metrics.txt agree": metrics_agree(train_metrics, test_metrics),
+            "finite metrics": all(math.isfinite(test_metrics[k]) for k in ("psnr", "ssim")),
+        }
+        line("wild", steps=10, train_command_s=train_s, test_command_s=test_s,
+             loop_ms_per_step_median=statistics.median(train.step_ms()),
+             loss_first=losses[0], loss_last=losses[-1], launches=dict(
+                 train=train_launches, test=test_launches, per_step=train.step_launches[0]),
+             mask_edges=tc.mask_edges, mask_rgb=tc.mask_rgb, hypothesis_load=train.hyp_load[0],
+             metrics_test=test_metrics, checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"wild: failed {bad}")
+        return checks
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+    finally:
+        os.chdir(cwd)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(out_dir: str, argv: list, log: io.StringIO, world: int) -> list:
+    """``argv`` through the CLI on ``world`` ranks (torchrun, this script as
+    each rank's program: ``dp_worker``); returns the ranks' records."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()), SCRIPT,
+           "--dp-worker", out_dir, *argv, "--multihost"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    log.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"dp: torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    records = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"rank{rank}_{argv[0]}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def dp_worker(out_dir: str, argv: list) -> int:
+    """One rank of the dp phase: the CLI's main under a CliProbe, then the
+    rank's launches, step times, losses and (for train) parameters."""
+    rank = int(os.environ["RANK"])
+    with CliProbe(first_grads=argv[0] == "train") as probe:
+        reset_counts()
+        state = cli.main("scannet", argv)
+        torch.cuda.synchronize()
+    rec = dict(rank=rank, launches=counts(), step_launches=probe.step_launches,
+               step_ms=probe.step_ms(), host_ms=probe.host_ms,
+               losses=[float(v) for v in probe.losses], view_launches=probe.view_launches,
+               view_s=probe.view_s, hypothesis_load=probe.hyp_load)
+    if argv[0] == "train":
+        torch.save(model_params(state), os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save(probe.first_grads, os.path.join(out_dir, f"rank{rank}_grads.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}_{argv[0]}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def model_params(state) -> dict:
+    return {f"{w}.{n}": t.detach().cpu() for w, m in (("coarse", state.model_coarse),
+                                                       ("fine", state.model_fine))
+            for n, t in m.state_dict().items()}
+
+
+def tar_params(path: str) -> dict:
+    raw = ckpt.load_checkpoint_raw(path)
+    return {f"{w}.{n[len('module.'):]}": t for w, key in (("coarse", "network_fn_state_dict"),
+                                                          ("fine", "network_fine_state_dict"))
+            for n, t in raw[key].items()}
+
+
+def abs_diffs(a: dict, b: dict) -> torch.Tensor:
+    return torch.cat([(a[k] - b[k]).abs().flatten() for k in a])
+
+
+def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
+    """Data parallelism on the cli phase's scene: ``train --multihost`` on
+    ``world`` ranks for DP_STEPS steps at the reference defaults (N_rand 1024,
+    1024 / world rays a rank) against 1 rank run twice in the same phase (the witness: training
+    on the card is not bit-reproducible; see DP_STEPS for what is held to
+    it), the ranks' parameters bit-equal;
+    then ``test --multihost`` (each view's rays split over the ranks)
+    against ``test`` on 1 rank on the same checkpoint. Ranks share a card over
+    gloo where there are fewer cards than ranks; else NCCL, a card a rank."""
+    cwd = os.getcwd()
+    log = io.StringIO()
+    try:
+        os.chdir(tmp)
+        flags = ["--num_iterations", str(DP_STEPS), "--i_weights", str(DP_STEPS),
+                 "--i_print", "1", "--i_img", "1000000"]
+        one = {}
+        for name in ("dp1a", "dp1b"):
+            with CliProbe(first_grads=True) as probe, contextlib.redirect_stdout(log):
+                reset_counts()
+                cli.main("scannet", ["train", *cli_common(tmp, seed, name), *flags])
+                torch.cuda.synchronize()
+            one[name] = dict(losses=[float(v) for v in probe.losses], step_ms=probe.step_ms(),
+                             launches=probe.step_launches, grads=probe.first_grads,
+                             params=tar_params(os.path.join("ckpt", name, f"{DP_STEPS:06d}.tar")))
+        out = os.path.join(tmp, "dp_ranks")
+        os.makedirs(out, exist_ok=True)
+        t0 = time.perf_counter()
+        ranks = torchrun(out, ["train", *cli_common(tmp, seed, "dp2"), *flags], log, world)
+        dp_train_s = time.perf_counter() - t0
+        two = tar_params(os.path.join("ckpt", "dp2", f"{DP_STEPS:06d}.tar"))
+        per_rank = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
+        # ranks print at once, so a line may run into another rank's output
+        backend = re.findall(r"multihost: rank \d+/\d+ on \S+, (?:nccl|gloo)", log.getvalue())
+
+        a, b = one["dp1a"], one["dp1b"]
+        d_one, d_two = abs_diffs(b["params"], a["params"]), abs_diffs(two, a["params"])
+        scale = max(t.abs().max().item() for t in a["params"].values())
+        spread, err = d_one.median().item(), d_two.median().item()
+        param_tol = max(DP_SPREAD_RATIO * spread, DP_REL * scale)
+        loss_spread = abs(b["losses"][0] - a["losses"][0])
+        loss_err = abs(ranks[0]["losses"][0] - a["losses"][0])
+        loss_tol = max(DP_SPREAD_RATIO * loss_spread, DP_REL * abs(a["losses"][0]))
+        grads_two = [torch.load(os.path.join(out, f"rank{r}_grads.pt")) for r in range(world)]
+        grad_spread = (b["grads"] - a["grads"]).abs().max().item()
+        grad_err = (grads_two[0] - a["grads"]).abs().max().item()
+        grad_scale = a["grads"].abs().max().item()
+        grad_tol = max(DP_SPREAD_RATIO * grad_spread, DP_REL * grad_scale)
+
+        result = os.path.join("ckpt", "dp2", "test_images_scene", "metrics.txt")
+        t0 = time.perf_counter()
+        test_ranks = torchrun(out, ["test", *cli_common(tmp, seed, "dp2")], log, world)
+        dp_test_s = time.perf_counter() - t0
+        sharded = read_metrics(result)
+        with CliProbe() as single, contextlib.redirect_stdout(log):
+            cli.main("scannet", ["test", *cli_common(tmp, seed, "dp2")])
+            torch.cuda.synchronize()
+        single_metrics = read_metrics(result)
+
+        rays_per_rank = -(-H * W // world)
+        per_view = 2 * (-(-rays_per_rank // RENDER_CHUNK))
+        checks = {
+            f"{world} ranks": len(backend) == world,
+            "params within the 1-rank spread (median)": err <= param_tol,
+            "first loss within the 1-rank spread": loss_err <= loss_tol,
+            "first grads within the 1-rank spread": grad_err <= grad_tol,
+            "ranks' first grads bit-equal": all(torch.equal(grads_two[0], g)
+                                                for g in grads_two[1:]),
+            "ranks' params bit-equal": all(torch.equal(per_rank[0][k], r[k])
+                                           for r in per_rank[1:] for k in per_rank[0]),
+            ".tar is rank 0's params": all(torch.equal(per_rank[0][k], two[k]) for k in two),
+            "launches per step per rank": all(
+                len(r["step_launches"]) == DP_STEPS
+                and all(d == {"k1": 2, "k2": 2} for d in r["step_launches"]) for r in ranks),
+            "sharded test launches per view per rank": all(
+                len(r["view_launches"]) == N_TEST
+                and all(d == {"k1": per_view, "k2": per_view} for d in r["view_launches"])
+                for r in test_ranks),
+            "sharded test metrics equal 1 rank's": metrics_agree(sharded, single_metrics),
+        }
+        line("dp", world=world, backend=backend, steps=DP_STEPS, n_rand=1024,
+             rays_per_rank=1024 // world,
+             params=dict(median_abs_err_2_vs_1=err, median_spread_1_vs_1=spread, tol=param_tol,
+                         max_abs_err_2_vs_1=d_two.max().item(),
+                         max_abs_spread_1_vs_1=d_one.max().item(),
+                         share_equal_2_vs_1=(d_two == 0).double().mean().item(),
+                         share_equal_1_vs_1=(d_one == 0).double().mean().item(),
+                         share_over_1e_4_2_vs_1=(d_two > 1e-4).double().mean().item(),
+                         share_over_1e_4_1_vs_1=(d_one > 1e-4).double().mean().item(),
+                         max_abs_param=scale),
+             losses=dict(two=ranks[0]["losses"], one_a=a["losses"], one_b=b["losses"],
+                         first_abs_err=loss_err, first_spread=loss_spread, first_tol=loss_tol,
+                         max_abs_err=max(abs(x - y) for x, y in zip(ranks[0]["losses"],
+                                                                     a["losses"])),
+                         max_spread=max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))),
+             first_grads=dict(n=a["grads"].numel(), max_abs_err_2_vs_1=grad_err,
+                              max_abs_spread_1_vs_1=grad_spread, max_abs_grad=grad_scale,
+                              tol=grad_tol),
+             ms_per_step=dict(one_rank=[statistics.median(a["step_ms"]),
+                                        statistics.median(b["step_ms"])],
+                              per_rank=[statistics.median(r["step_ms"]) for r in ranks],
+                              per_rank_host=[statistics.median(r["host_ms"][1:]) for r in ranks]),
+             train_command_s=dp_train_s, test_command_s=dp_test_s,
+             s_per_view=dict(sharded=[statistics.median(r["view_s"]) for r in test_ranks],
+                             one_rank=statistics.median(single.view_s)),
+             launches=dict(train=[r["launches"] for r in ranks],
+                           test=[r["launches"] for r in test_ranks]),
+             metrics=dict(sharded=sharded, one_rank=single_metrics), checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"dp: failed {bad}")
+        return checks
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+    finally:
+        os.chdir(cwd)
 
 
 def conv_linear_flops(model, x, z, shifts) -> int:
@@ -1165,12 +1606,18 @@ def phase_prior(seed: int) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of the dp phase (torchrun)
+        return dp_worker(sys.argv[2], sys.argv[3:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--k1-only", action="store_true",
                         help="run the device and k1 phases only and print no result line: "
                              "for comparing K1 builds of two trees on one card")
+    parser.add_argument("--dp-only", type=int, default=0, metavar="N",
+                        help="run the device phase, then the dp phase on N ranks on a "
+                             "freshly written scene, and print no result line: for data "
+                             "parallelism over N cards (NCCL)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1180,6 +1627,14 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
 
     dev = phase_device()
+    if args.dp_only:
+        tmp = tempfile.mkdtemp(prefix="scade_dp_")
+        try:
+            write_scene(tmp, args.seed)
+            phase_dp(tmp, args.seed, args.dp_only)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
     k1 = phase_k1(gen, dev["hmma"])
     if args.k1_only:
         return 0
@@ -1190,7 +1645,17 @@ def main() -> int:
     phase_render(state, scene)
     del state, scene
     torch.cuda.empty_cache()
-    cli_launches = phase_cli(args.seed, train_median_ms)
+    tmp = tempfile.mkdtemp(prefix="scade_cli_")
+    try:
+        cli_launches, test_metrics = phase_cli(tmp, args.seed, train_median_ms)
+        torch.cuda.empty_cache()
+        phase_tasks(tmp, args.seed, test_metrics)
+        torch.cuda.empty_cache()
+        phase_wild(tmp, args.seed)
+        torch.cuda.empty_cache()
+        phase_dp(tmp, args.seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_prior(args.seed)
 

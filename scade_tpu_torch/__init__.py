@@ -13,13 +13,15 @@ The package mirrors scade_tpu's module layout (``scade_tpu/X/y.py`` is
 - ``train``    — the train step (batch gather, losses, two optax-style Adams)
   and the train loop (cadence, checkpoints, logging, the final test).
 - ``data``     — scene loading: transforms_*.json, images, depths, cIMLE
-  hypotheses, and a PNG codec for machines without OpenCV.
-- ``eval``     — rendering views with PSNR/SSIM/LPIPS/depth RMSE and writing
-  the test results.
-- ``utils``    — the CLI's flags, ``.tar`` checkpoints, metrics.txt and the
-  TensorBoard/JSONL writer.
-- ``cli``      — ``python -m scade_tpu_torch train|test``, the reference
-  runner's CLI.
+  hypotheses (read in parallel by ``native/scene_cache.cc`` and cached as
+  one blob), and a PNG codec for machines without OpenCV.
+- ``eval``     — rendering views with PSNR/SSIM/LPIPS/depth RMSE, writing
+  the test results, the video task and test-time camera-latent fitting.
+- ``parallel`` — data parallelism over ranks, one process per card.
+- ``utils``    — the CLI's flags, ``.tar`` checkpoints, metrics.txt, the
+  TensorBoard/JSONL writer and an MJPEG AVI writer.
+- ``cli``      — ``python -m scade_tpu_torch train|test|test_opt|video``,
+  the reference runner's CLI; ``wild`` its In-the-Wild variant.
 - ``convert``  — weights between the JAX params layout and the state_dict.
 - ``prior``    — the cIMLE depth prior's inference path: the ResNeXt101
   cIMLE model, its checkpoints, and ``python -m scade_tpu_torch.prior.dump``

@@ -1,4 +1,5 @@
-"""``python -m scade_tpu_torch train|test ...``: see ``scade_tpu_torch/cli.py``."""
+"""``python -m scade_tpu_torch train|test|test_opt|video ...``: see
+``scade_tpu_torch/cli.py``."""
 
 from scade_tpu_torch.cli import main
 

@@ -9,8 +9,10 @@ the ``rgb → target_depth`` filename swap; hypothesis dumps at
 ``<scene>/train/leres_cimle/<cimle_dir>/<img_id>_<k>.npy``.
 
 Everything here is numpy on the host; the train loop moves the arrays to the
-device once. Hypotheses are read with one ``np.load`` per file and never
-cached on disk, so loading writes nothing into the scene directory.
+device once. Hypotheses are read in parallel by the native scene cache
+(``data/native_cache.py``) and packed into ``.scade_hyp_cache.blob`` beside
+the dump, with a ``.json`` sidecar of each file's (mtime_ns, size): the JAX
+package's cache format, so either package reads the other's blob.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from scade_tpu_torch.data import native_cache
 from scade_tpu_torch.data.image_io import read_depth_png, read_image
 
 SPLITS = ("train", "val", "test", "video")
@@ -47,6 +50,9 @@ class Scene:
     filenames: List[str] = dataclasses.field(default_factory=list)
     scales_init: Optional[np.ndarray] = None
     shifts_init: Optional[np.ndarray] = None
+    # how the hypotheses were read: "npy" (the .npy files) or "blob" (the
+    # cache), then ":native" or ":numpy"; None without hypotheses
+    hypothesis_load: Optional[str] = None
 
     @property
     def i_train(self):
@@ -159,18 +165,54 @@ def _image_id(filename: str) -> str:
     return filename.split("/")[-1].split(".")[0]
 
 
-def _load_hypotheses(basedir, cimle_dir, filenames, i_train, num_hypothesis, near, far):
+def _stat_sig(path: str):
+    st = os.stat(path)
+    return int(st.st_mtime_ns), int(st.st_size)
+
+
+def _load_hypotheses(basedir, cimle_dir, filenames, i_train, num_hypothesis, near,
+                     far) -> Tuple[np.ndarray, str]:
     """The cIMLE hypothesis dumps, clipped to [near, far]
-    (data/load_scene.py:316-349). Returns (N_train, K, H, W, 1) float32."""
+    (data/load_scene.py:316-349): (N_train, K, H, W, 1) float32, and how
+    they were read (see Scene.hypothesis_load).
+
+    The files are read in parallel through the native library, and packed
+    into a blob with a sidecar that lists each file's (mtime_ns, size), as
+    the JAX loader does (scade_tpu/data/scene.py:208-274): a later load whose
+    files all match the sidecar reads the blob, one sequential read; any
+    changed file makes the blob stale, and the files are read again. A dump
+    directory that cannot be written to is read without the cache."""
     leres_dir = os.path.join(basedir, "train", "leres_cimle", cimle_dir)
     paths = [os.path.join(leres_dir, f"{_image_id(filenames[idx])}_{j}.npy")
              for idx in i_train for j in range(num_hypothesis)]
     if not paths:
-        return np.zeros((0, num_hypothesis, 0, 0, 1), np.float32)
-    flats = [np.load(p) for p in paths]
-    H, W = flats[0].shape
+        return np.zeros((0, num_hypothesis, 0, 0, 1), np.float32), "npy:numpy"
+    H, W = np.load(paths[0], mmap_mode="r").shape
+
+    blob = os.path.join(leres_dir, ".scade_hyp_cache.blob")
+    meta_path = blob + ".json"
+    meta = {"files": [[os.path.basename(p), *_stat_sig(p)] for p in paths], "shape": [H, W]}
+    flats = None
+    if os.path.exists(blob) and os.path.exists(meta_path):
+        try:
+            with open(meta_path) as fp:
+                if json.load(fp) == meta:
+                    flats, how = native_cache.read_blob(blob)
+                    how = "blob:" + how
+        except (OSError, ValueError):
+            flats = None  # a corrupt cache: read the files
+    if flats is None:
+        flats, how = native_cache.load_npy_batch(paths)
+        how = "npy:" + how
+        try:
+            native_cache.write_blob(blob, flats)
+            with open(meta_path + ".tmp", "w") as fp:
+                json.dump(meta, fp)
+            os.replace(meta_path + ".tmp", meta_path)
+        except OSError:
+            pass  # a read-only dump directory: later loads read the files again
     all_hyp = np.stack(flats, 0).reshape(len(i_train), num_hypothesis, H, W, 1)
-    return np.clip(all_hyp, near, far)
+    return np.clip(all_hyp, near, far), how
 
 
 def _load_scale_shift_init(basedir, scales_dir, filenames, i_train, gt_init):
@@ -202,9 +244,10 @@ def load_scene_scannet(basedir, cimle_dir, num_hypothesis=20, train_json="transf
         _load_splits(basedir, train_json)
     )
     gt_d, gt_v = load_ground_truth_depth(basedir, fnames, (H, W), dsf)
-    hyp = _load_hypotheses(basedir, cimle_dir, fnames, i_split[0], num_hypothesis, near, far)
+    hyp, how = _load_hypotheses(basedir, cimle_dir, fnames, i_split[0], num_hypothesis, near,
+                                far)
     scene = Scene(imgs, depths, valid, poses, H, W, intr, near, far, i_split,
-                  gt_d, gt_v, hyp, fnames)
+                  gt_d, gt_v, hyp, fnames, hypothesis_load=how)
     if init_scales:
         scene.scales_init, scene.shifts_init = _load_scale_shift_init(
             basedir, scales_dir, fnames, i_split[0], gt_init)
@@ -229,9 +272,10 @@ def load_scene_processed(basedir, cimle_dir, num_hypothesis=20,
     imgs, depths, valid, poses, intr, H, W, near, far, dsf, i_split, fnames = (
         _load_splits(basedir, train_json, depth_ext_png=True)
     )
-    hyp = _load_hypotheses(basedir, cimle_dir, fnames, i_split[0], num_hypothesis, near, far)
+    hyp, how = _load_hypotheses(basedir, cimle_dir, fnames, i_split[0], num_hypothesis, near,
+                                far)
     scene = Scene(imgs, depths, valid, poses, H, W, intr, near, far, i_split,
-                  None, None, hyp, fnames)
+                  None, None, hyp, fnames, hypothesis_load=how)
     if init_scales:
         scene.scales_init, scene.shifts_init = _load_scale_shift_init(
             basedir, scales_dir, fnames, i_split[0], gt_init)

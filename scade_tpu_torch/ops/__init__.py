@@ -2,7 +2,7 @@
 
 from scade_tpu_torch.ops.embedding import Embedder, get_embedder, positional_encoding
 from scade_tpu_torch.ops.losses import compute_space_carving_loss, img2mse, mse2psnr
-from scade_tpu_torch.ops.rays import get_ray_dirs, get_rays, get_rays_at_coords
+from scade_tpu_torch.ops.rays import get_ray_dirs, get_rays, get_rays_at_coords, ndc_rays
 from scade_tpu_torch.ops.sampling import draw_u, draw_u_sorted, merge_sorted, sample_pdf
 from scade_tpu_torch.ops.volume import (
     compute_weights,
@@ -21,6 +21,7 @@ __all__ = [
     "get_ray_dirs",
     "get_rays",
     "get_rays_at_coords",
+    "ndc_rays",
     "draw_u",
     "draw_u_sorted",
     "merge_sorted",

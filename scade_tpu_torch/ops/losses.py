@@ -26,6 +26,7 @@ def compute_space_carving_loss(
     mask=None,
     norm_p: int = 2,
     threshold: float = 0.0,
+    mean_over_ranks=None,
 ):
     """Space-carving loss.
 
@@ -39,6 +40,11 @@ def compute_space_carving_loss(
     is_joint=False: min over the K hypotheses per (ray, point), then the
     mean. is_joint=True: mean over rays per hypothesis, min over K per
     point, then the mean over points.
+
+    mean_over_ranks: under data parallelism, a differentiable mean over the
+    ranks (``Ranks.mean``). The is_joint mean over rays must be the whole
+    batch's before the min over K, so it is averaged over the ranks there;
+    every other form is a plain mean that equal blocks average afterwards.
     """
     del norm_p
     n_points = pred_depth.shape[-1]
@@ -57,6 +63,8 @@ def compute_space_carving_loss(
 
     if is_joint:
         quantile_mean = torch.mean(distances, dim=1)  # (K, P)
+        if mean_over_ranks is not None:
+            quantile_mean = mean_over_ranks(quantile_mean)
         return torch.mean(torch.min(quantile_mean, dim=0).values)
     best_hyp = torch.min(distances, dim=0).values  # (R, P)
     return torch.mean(torch.mean(best_hyp, dim=-1))

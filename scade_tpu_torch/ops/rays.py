@@ -48,3 +48,24 @@ def get_rays(H: int, W: int, intrinsic, c2w, coords=None):
 def get_rays_at_coords(intrinsic, c2w, coords, H: int):
     """Rays for a gathered (N, 2) list of (row, col) pixel coordinates."""
     return get_rays(H, 0, intrinsic, c2w, coords=coords)
+
+
+def ndc_rays(H: int, W: int, focal, near, rays_o, rays_d):
+    """Shift rays to the near plane and project them to NDC
+    (run_nerf_helpers.py:316-333)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

@@ -13,6 +13,12 @@ lookups through kernel K2 (``ops/fused_sampling.py``) when ``use_fused`` and
 ``fused_sampling`` are on, which they are by default. Randomness comes from
 an explicit ``torch.Generator``; ``generator=None`` is the deterministic
 (test-time) path.
+
+Under data parallelism (``parallel/dist.py``) a rank renders a block of a
+batch: ``render_rays(block=RayBlock(rows, total))`` makes every draw for the
+whole batch and keeps the block's rows, so the ranks together draw what one
+device would; ``render_image(ranks=...)`` splits an image's rays into
+contiguous blocks, one a rank, and reassembles the maps on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from scade_tpu_torch.ops.fused_sampling import fused_sample_pdf
 from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.ops.sampling import draw_u, draw_u_sorted, merge_sorted, sample_pdf
 from scade_tpu_torch.ops.volume import perturb_z_vals, raw2outputs, stratified_z_vals
+from scade_tpu_torch.parallel.dist import Ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,10 +167,18 @@ def _query_network(model: NeRF, nerf_cfg: NeRFConfig, rc: RenderConfig, pts, vie
     return model(embedded)
 
 
-def _density_noise(generator, shape, std: float, device):
+class RayBlock(NamedTuple):
+    """Rows ``rows`` of a batch of ``total`` rays: a rank's share of the
+    train step's batch."""
+
+    rows: slice
+    total: int
+
+
+def _density_noise(generator, n_draw: int, n_pts: int, std: float, device, mine):
     if std <= 0.0 or generator is None:
         return 0.0
-    return torch.randn(shape, generator=generator, device=device) * std
+    return mine(torch.randn((n_draw, n_pts), generator=generator, device=device)) * std
 
 
 def render_rays(
@@ -176,14 +191,22 @@ def render_rays(
     viewdirs=None,
     generator: Optional[torch.Generator] = None,
     cached_u=None,
+    block: Optional[RayBlock] = None,
 ):
     """Render an (N, 3) ray batch into the reference's ret dict.
 
     near/far: scalars or (N, 1) tensors. generator=None ⇒ fully
     deterministic (linspace draws, no jitter, no noise): the test-time path.
+    block: the rays are rows ``block.rows`` of a batch of ``block.total``;
+    every draw is made for the whole batch and cut to those rows.
     """
     n_rays = rays_o.shape[0]
     dev = rays_o.device
+    n_draw = n_rays if block is None else block.total
+
+    def mine(x):
+        return x if block is None else x[block.rows]
+
     near = torch.as_tensor(near, dtype=torch.float32, device=dev).expand(n_rays, 1)
     far = torch.as_tensor(far, dtype=torch.float32, device=dev).expand(n_rays, 1)
     if rc.use_viewdirs and viewdirs is None:
@@ -197,13 +220,12 @@ def render_rays(
     # --- coarse pass -------------------------------------------------------
     z_vals = stratified_z_vals(near, far, rc.n_samples, rc.lindisp)
     if rc.perturb and generator is not None:
-        z_vals = perturb_z_vals(
-            z_vals, torch.rand(z_vals.shape, generator=generator, device=dev)
-        )
+        z_vals = perturb_z_vals(z_vals, mine(
+            torch.rand((n_draw, rc.n_samples), generator=generator, device=dev)))
 
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw = _query_network(scene.model_coarse, rc.nerf_coarse, rc, pts, viewdirs, scene)
-    noise0 = _density_noise(generator, raw[..., 3].shape, rc.raw_noise_std, dev)
+    noise0 = _density_noise(generator, n_draw, raw.shape[1], rc.raw_noise_std, dev, mine)
     rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(raw, z_vals, rays_d, noise0)
 
     if rc.n_importance == 0:
@@ -211,21 +233,22 @@ def render_rays(
         # crashes here on an undefined `u`; the second tier's u is returned.
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         # sorted draws keep z_vals_2 ascending, so the union is a merge
-        u1 = draw_u_sorted(generator, n_rays, rc.n_samples, det=det, joint=rc.is_joint,
-                           device=dev)
+        u1 = mine(draw_u_sorted(generator, n_draw, rc.n_samples, det=det, joint=rc.is_joint,
+                                device=dev))
         z_vals_2 = _sample_pdf(z_mid, weights[..., 1:-1], u1)
 
         pts2 = rays_o[..., None, :] + rays_d[..., None, :] * z_vals_2[..., :, None]
         raw2 = _query_network(scene.model_coarse, rc.nerf_coarse, rc, pts2, viewdirs, scene)
         z_all, raw_all = merge_sorted(z_vals, z_vals_2, raw, raw2)
-        noise1 = _density_noise(generator, raw_all[..., 3].shape, rc.raw_noise_std, dev)
+        noise1 = _density_noise(generator, n_draw, raw_all.shape[1], rc.raw_noise_std, dev, mine)
         rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
             raw_all, z_all, rays_d, noise1
         )
 
         z_mid2 = 0.5 * (z_all[..., 1:] + z_all[..., :-1])
         if cached_u is None:
-            u = draw_u(generator, n_rays, rc.n_samples, det=det, joint=rc.is_joint, device=dev)
+            u = mine(draw_u(generator, n_draw, rc.n_samples, det=det, joint=rc.is_joint,
+                            device=dev))
         else:
             u = cached_u
         z_vals_output = _sample_pdf(z_mid2, weights[..., 1:-1], u)
@@ -245,20 +268,21 @@ def render_rays(
     rgb0, disp0, acc0, depth0, z0, w0 = rgb_map, disp_map, acc_map, depth_map, z_vals, weights
 
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    u_imp = draw_u_sorted(generator, n_rays, rc.n_importance, det=det, device=dev)
+    u_imp = mine(draw_u_sorted(generator, n_draw, rc.n_importance, det=det, device=dev))
     # fine positions do not backprop into the coarse weights
     z_samples = _sample_pdf(z_mid, weights[..., 1:-1], u_imp).detach()
 
     z_all = merge_sorted(z_vals, z_samples)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
     raw = _query_network(scene.model_fine, rc.nerf_fine, rc, pts, viewdirs, scene)
-    noise1 = _density_noise(generator, raw[..., 3].shape, rc.raw_noise_std, dev)
+    noise1 = _density_noise(generator, n_draw, raw.shape[1], rc.raw_noise_std, dev, mine)
     rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(raw, z_all, rays_d, noise1)
 
     # --- P_depth draws from the fine termination distribution -------------
     z_mid2 = 0.5 * (z_all[..., 1:] + z_all[..., :-1])
     if cached_u is None:
-        u = draw_u(generator, n_rays, rc.n_importance, det=det, joint=rc.is_joint, device=dev)
+        u = mine(draw_u(generator, n_draw, rc.n_importance, det=det, joint=rc.is_joint,
+                        device=dev))
     else:
         u = cached_u
     pred_hyp = _sample_pdf(z_mid2, weights[..., 1:-1], u)  # differentiable
@@ -336,10 +360,16 @@ def render_image(
     chunk: int = 16384,
     with_5_9: bool = False,
     outputs: Optional[tuple] = None,
+    ranks: Optional[Ranks] = None,
 ):
     """Full-image deterministic render on ``rc.device``, without gradients.
     Returns the ret dict with (H, W, ...) leaves (W cropped to 16:9 with
-    ``with_5_9``)."""
+    ``with_5_9``).
+
+    ranks: render sharded over the process group (every rank must call it):
+    the flattened rays split into equal contiguous blocks, the last padded
+    with copies of the last ray, each rank renders its block, and every rank
+    gets the whole maps (scade_tpu/render/renderer.py:467-526)."""
     device = torch.device(rc.device)
     intrinsic = torch.as_tensor(intrinsic, dtype=torch.float32, device=device)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
@@ -353,8 +383,20 @@ def render_image(
             start = (W - w_out) // 2
             rays_o = rays_o[:, start: start + w_out, :]
             rays_d = rays_d[:, start: start + w_out, :]
-        out = render_ray_batch(
-            scene, rc.test_mode(), rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
-            float(near), float(far), chunk=chunk, outputs=outputs,
-        )
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        if ranks is None:
+            out = render_ray_batch(scene, rc.test_mode(), rays_o, rays_d, float(near),
+                                   float(far), chunk=chunk, outputs=outputs)
+        else:
+            n = rays_o.shape[0]
+            per = -(-n // ranks.world)
+            mine = slice(ranks.rank * per, (ranks.rank + 1) * per)
+
+            def padded(x):
+                return torch.cat([x, x[-1:].expand(per * ranks.world - n, 3)])[mine]
+
+            out = render_ray_batch(scene, rc.test_mode(), padded(rays_o), padded(rays_d),
+                                   float(near), float(far), chunk=min(chunk, per),
+                                   outputs=outputs)
+            out = {k: ranks.gather_rows(v, n) for k, v in out.items()}
     return {k: v.reshape((H, w_out) + v.shape[1:]) for k, v in out.items()}

@@ -4,8 +4,12 @@ The device does all per-step work (``train/step.py``). This loop seeds each
 step's generator, reads the metrics only every ``i_print`` steps (reading
 them every step would wait for the device each time), and does the
 ``i_weights`` / ``i_img`` / final-test side effects (reference cadence:
-run_scade_scannet.py:1002-1087), as the JAX package's ``train/loop.py`` does
-on one device.
+run_scade_scannet.py:1002-1087), as the JAX package's ``train/loop.py`` does.
+
+Under a process group (``--multihost``) every rank runs the same steps on
+its block of rays (``train/step.py``) and renders its share of every eval
+view; only rank 0 writes the ``.tar`` files, the TB/JSONL scalars and the
+test images (scade_tpu/train/loop.py:246-255,301-304).
 
 Deterministic resume: step ``i`` reseeds one reused generator on the device
 with ``step_seed(args.seed, i)``, the counterpart of the JAX loop's
@@ -16,6 +20,7 @@ state, so a run resumed from step N continues exactly as if uninterrupted.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ import torch
 from scade_tpu_torch.eval.evaluate import render_images_with_metrics, write_images_with_metrics
 from scade_tpu_torch.eval.lpips import LPIPSAlex
 from scade_tpu_torch.ops.rays import get_rays
+from scade_tpu_torch.parallel.dist import Ranks
 from scade_tpu_torch.render.renderer import SceneVars, make_render_config
 from scade_tpu_torch.train.step import (
     TrainConfig,
@@ -36,7 +42,6 @@ from scade_tpu_torch.utils.ckpt import (
     restore_train_state,
     save_checkpoint,
 )
-from scade_tpu_torch.utils.config import MULTIHOST_MESSAGE
 from scade_tpu_torch.utils.logging import Writer, make_image_grid
 
 
@@ -140,13 +145,15 @@ def _tb_grid(images: dict, with0: bool) -> np.ndarray:
     return np.concatenate([make_image_grid(images[k]) for k in keys], axis=1)
 
 
-def train_nerf(scene, args):
+def train_nerf(scene, args, ranks: Optional[Ranks] = None):
     """SCADE training (reference train_nerf :830-1089) on ``args.device``.
-    ``scene`` is a loaded ``data.scene.Scene``. Returns the final TrainState."""
-    if getattr(args, "multihost", False):
-        raise NotImplementedError(MULTIHOST_MESSAGE)
+    ``scene`` is a loaded ``data.scene.Scene``; ``ranks``: data-parallel over
+    the process group (every rank calls this). Returns the final TrainState."""
     device = check_device(args.device)
     rc, tc = args_to_configs(args)
+    if ranks is not None and tc.n_rand % ranks.world:
+        raise ValueError(f"--N_rand {tc.n_rand} does not split evenly over {ranks.world} ranks")
+    primary = ranks is None or ranks.primary
 
     # val/test get GT depth where it exists (:843-847)
     if scene.gt_depths is not None:
@@ -163,7 +170,8 @@ def train_nerf(scene, args):
                                scales_init=scene.scales_init, shifts_init=scene.shifts_init)
 
     run_dir = os.path.join(args.ckpt_dir, args.expname)
-    os.makedirs(run_dir, exist_ok=True)
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
     start = 0
     resumed = False
     if not args.no_reload:
@@ -189,10 +197,13 @@ def train_nerf(scene, args):
         # 0, as the reference's warm start (run_scade_scannet.py:906-938)
         load_weights(ckpts[-1], state, rc)
 
-    step_fn = make_train_step(rc, tc, scene.H, scene.W, n_train)
+    step_fn = make_train_step(rc, tc, scene.H, scene.W, n_train, ranks)
+    if ranks is not None:
+        print(f"Training data-parallel over {ranks.world} ranks, "
+              f"{tc.n_rand // ranks.world} rays a rank")
     # the wild runner logs under runs_prior_corrected (run_scade_wild.py:842)
     tb_root = "runs_prior_corrected" if getattr(args, "variant", "scannet") == "wild" else "runs"
-    tb = Writer(os.path.join(tb_root, args.expname))
+    tb = Writer(os.path.join(tb_root, args.expname)) if primary else None
     lpips_fn = LPIPSAlex().to(device)
     no_cam = torch.zeros((rc.input_ch_cam,), device=device)
 
@@ -211,12 +222,12 @@ def train_nerf(scene, args):
         generator.manual_seed(step_seed(args.seed, i))
         metrics = step_fn(state, st, generator)
 
-        if i % args.i_weights == 0:
+        if i % args.i_weights == 0 and primary:
             path = os.path.join(run_dir, f"{i:06d}.tar")
             save_checkpoint(path, state)
             print(f"Saved checkpoints at {path}")
 
-        if i % args.i_print == 0:
+        if i % args.i_print == 0 and primary:
             m = {k: float(v) for k, v in metrics.items()}
             tb.add_scalars("mse", {"train": m["img_loss"]}, i)
             if tc.space_carving_weight > 0.0:
@@ -238,12 +249,14 @@ def train_nerf(scene, args):
             _, images_train = render_images_with_metrics(
                 min(2, n_train), np.arange(n_train), imgs, depths, valid, poses, scene.H,
                 scene.W, intr, scene_vars(), rc, scene.near, scene.far, chunk=args.chunk // 2,
-                lpips_fn=lpips_fn, rng=np.random.default_rng(i))
+                lpips_fn=lpips_fn, rng=np.random.default_rng(i), verbose=primary, ranks=ranks)
             # val metrics and up to 8 val renders (reference :1050-1074)
             mean_val, images_val = render_images_with_metrics(
                 min(8, len(i_val_local)), i_val_local, imgs, depths, valid, poses, scene.H,
                 scene.W, intr, scene_vars(), rc, scene.near, scene.far, chunk=args.chunk // 2,
-                lpips_fn=lpips_fn, rng=np.random.default_rng(i + 1))
+                lpips_fn=lpips_fn, rng=np.random.default_rng(i + 1), verbose=primary,
+                ranks=ranks)
+        if i % args.i_img == 0 and primary:
             tb.add_image("train_image", _tb_grid(images_train, with0=False), i)
             tb.add_scalars("mse", {"val": mean_val.get("img_loss")}, i)
             tb.add_scalars("psnr", {"val": mean_val.get("psnr")}, i)
@@ -262,8 +275,10 @@ def train_nerf(scene, args):
                 None, np.arange(len(i_test)), scene.images[i_test], scene.depths[i_test],
                 scene.valid_depths[i_test], scene.poses[i_test], scene.H, scene.W,
                 scene.intrinsics[i_test], scene_vars(), rc, scene.near, scene.far,
-                chunk=args.chunk // 2, lpips_fn=lpips_fn)
-            write_images_with_metrics(images_test, mean_test, scene.far, args.ckpt_dir,
-                                      args.expname, args.scene_id)
-    tb.close()
+                chunk=args.chunk // 2, lpips_fn=lpips_fn, verbose=primary, ranks=ranks)
+            if primary:
+                write_images_with_metrics(images_test, mean_test, scene.far, args.ckpt_dir,
+                                          args.expname, args.scene_id)
+    if primary:
+        tb.close()
     return state

@@ -13,6 +13,13 @@ Both Adams follow optax's arithmetic (eps outside the sqrt, bias corrections
 on the incremented count). While frozen, scale/shift take a zero update but
 their moments still advance, which ``torch.optim.Adam`` cannot express, so
 the updates are written on tensors. The step updates the state in place.
+
+Under data parallelism (``parallel/dist.py``) every rank draws the whole
+step's batch from the same generator and renders its contiguous block of
+rays, with the draws the whole batch would give them (``RayBlock``). Each
+rank's loss is scaled by 1/world and the grads and metrics summed over the
+ranks in one collective, so every rank applies the same Adam step and the
+step is the one-device step (scade_tpu/train/step.py:251-270).
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops.losses import compute_space_carving_loss, img2mse, mse2psnr
 from scade_tpu_torch.ops.rays import get_rays
-from scade_tpu_torch.render.renderer import RenderConfig, SceneVars, render_rays
+from scade_tpu_torch.parallel.dist import Ranks
+from scade_tpu_torch.render.renderer import RayBlock, RenderConfig, SceneVars, render_rays
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # torch.optim.Adam and optax.adam defaults
 
@@ -245,15 +253,29 @@ def sample_ray_batch(generator, scene: SceneTensors, H: int, W: int, n_train: in
     return RayBatch(rays_o, rays_d, target_s, target_h, sc_mask, img_i)
 
 
+def batch_rows(batch: RayBatch, rows: slice) -> RayBatch:
+    """The rays ``rows`` of a batch."""
+    return batch._replace(
+        rays_o=batch.rays_o[rows], rays_d=batch.rays_d[rows], target_s=batch.target_s[rows],
+        target_h=batch.target_h[:, rows],
+        sc_mask=None if batch.sc_mask is None else batch.sc_mask[rows])
+
+
 def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: RenderConfig,
-                 tc: TrainConfig, generator=None, cached_u=None):
-    """Total loss and the metrics dict (tensors) for one batch."""
+                 tc: TrainConfig, generator=None, cached_u=None, ranks: Optional[Ranks] = None):
+    """Total loss and the metrics dict (tensors) for one batch.
+
+    Under ``ranks``, ``batch`` is this rank's block of the step's
+    ``tc.n_rand`` rays: the returned loss is scaled by 1/world (grads summed
+    over the ranks are then the whole batch's), and the metrics are this
+    rank's, to be averaged over the ranks."""
+    block = None if ranks is None else RayBlock(ranks.block(tc.n_rand), tc.n_rand)
     scene_vars = SceneVars(
         state.model_coarse, state.model_fine, scene.bb_center, scene.bb_scale,
         torch.zeros((rc.input_ch_cam,), device=scene.bb_center.device),
     )
     out = render_rays(scene_vars, rc, batch.rays_o, batch.rays_d, scene.near, scene.far,
-                      generator=generator, cached_u=cached_u)
+                      generator=generator, cached_u=cached_u, block=block)
 
     def rgb_loss(pred):
         if tc.mask_rgb and batch.sc_mask is not None:
@@ -266,6 +288,7 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
     sc_loss = compute_space_carving_loss(
         out["pred_hyp"], th, is_joint=tc.is_joint, mask=batch.sc_mask, norm_p=tc.norm_p,
         threshold=tc.space_carving_threshold,
+        mean_over_ranks=None if ranks is None else ranks.mean,
     )
     # active after warm_start_nerf iterations; logged as zero while inactive
     sc_active = tc.space_carving_weight > 0.0 and state.step + 1 > tc.warm_start_nerf
@@ -280,17 +303,27 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
         loss = loss + img_loss0
         metrics["img_loss0"] = img_loss0.detach()
     metrics["loss"] = loss.detach()
+    if ranks is not None:
+        loss = loss / ranks.world
     return loss, metrics
 
 
 def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: RenderConfig,
-                  tc: TrainConfig, generator=None, cached_u=None):
+                  tc: TrainConfig, generator=None, cached_u=None, ranks: Optional[Ranks] = None):
     """(grads of the NeRF params, grad of scales, grad of shifts, metrics);
-    a grad is None where the loss does not reach the tensor."""
-    loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u)
-    params = state.nerf_params()
-    grads = torch.autograd.grad(loss, params + [state.scales, state.shifts], allow_unused=True)
-    return list(grads[:-2]), grads[-2], grads[-1], metrics
+    a grad is None where the loss does not reach the tensor. Under ``ranks``
+    the grads are summed and the metrics averaged over the ranks, so every
+    rank returns the whole batch's."""
+    loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u, ranks)
+    wrt = state.nerf_params() + [state.scales, state.shifts]
+    grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+    if ranks is not None:
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
+        names = list(metrics)
+        values = [metrics[k].reshape(1) for k in names]
+        ranks.sum_(grads + values)
+        metrics = {k: v[0] / ranks.world for k, v in zip(names, values)}
+    return grads[:-2], grads[-2], grads[-1], metrics
 
 
 def apply_grads(state: TrainState, grads, g_scales, g_shifts, tc: TrainConfig,
@@ -313,15 +346,20 @@ def apply_grads(state: TrainState, grads, g_scales, g_shifts, tc: TrainConfig,
     return metrics
 
 
-def make_train_step(rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: int):
+def make_train_step(rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: int,
+                    ranks: Optional[Ranks] = None):
     """The train step: (state, scene, generator) -> metrics, with ``state``
     updated in place. ``generator`` lives on the scene's device and drives
-    the batch, the jitter and the draws."""
+    the batch, the jitter and the draws. ``ranks``: data-parallel over the
+    process group, each rank on its block of ``tc.n_rand / world`` rays."""
+    rows = None if ranks is None else ranks.block(tc.n_rand)
 
     def step_fn(state: TrainState, scene: SceneTensors, generator: torch.Generator):
         batch = sample_ray_batch(generator, scene, H, W, n_train, tc)
+        if rows is not None:
+            batch = batch_rows(batch, rows)
         grads, g_scales, g_shifts, metrics = compute_grads(
-            state, scene, batch, rc, tc, generator=generator
+            state, scene, batch, rc, tc, generator=generator, ranks=ranks
         )
         return apply_grads(state, grads, g_scales, g_shifts, tc, n_train, metrics)
 

@@ -11,8 +11,10 @@ variants, with three differences:
 - ``--device {cuda,cpu}`` (default ``cuda``) names where the run goes. It
   takes the place of the JAX CLI's ``SCADE_PLATFORM`` environment variable.
   Without a CUDA device, ``cuda`` raises; nothing falls back to the CPU.
-- ``--multihost`` is accepted but raises ``NotImplementedError``: data
-  parallelism is ROADMAP Queue 1 item 10.
+- ``--multihost`` starts a ``torch.distributed`` process group, one
+  process per card (``parallel/dist.py``), from torchrun's environment or
+  the JAX CLI's ``SCADE_COORDINATOR``/``SCADE_NUM_PROCESSES``/
+  ``SCADE_PROCESS_ID``, where the JAX CLI joins one mesh over all processes.
 """
 
 from __future__ import annotations
@@ -141,7 +143,9 @@ def build_parser(variant: str = "scannet") -> argparse.ArgumentParser:
                    help="MLP matmul dtype; bfloat16 runs K1 on the bf16 tensor cores")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--multihost", action="store_true",
-                   help="not supported by this package yet (raises)")
+                   help="data-parallel over a torch.distributed process group, one process a "
+                        "card: launch with torchrun, or set SCADE_COORDINATOR (host:port), "
+                        "SCADE_NUM_PROCESSES and SCADE_PROCESS_ID")
     p.add_argument("--use_fused", type=_bool, default=True,
                    help="run PE+MLP and the inverse-CDF lookups through the CUDA kernels")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -153,10 +157,6 @@ def _bool(v) -> bool:
     if isinstance(v, bool):
         return v
     return str(v).lower() in ("true", "1", "yes")
-
-
-MULTIHOST_MESSAGE = ("--multihost: data parallelism is not ported to scade_tpu_torch yet "
-                     "(ROADMAP Queue 1 item 10)")
 
 
 def parse_args(variant: str = "scannet", argv: Optional[List[str]] = None):
@@ -179,7 +179,4 @@ def parse_args(variant: str = "scannet", argv: Optional[List[str]] = None):
     if cfg_path is not None:
         # re-append --config so args.config records the file used
         argv = _read_config_file(cfg_path, parser) + rest + ["--config", cfg_path]
-    args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(MULTIHOST_MESSAGE)
-    return args
+    return parser.parse_args(argv)

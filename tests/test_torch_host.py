@@ -22,6 +22,7 @@ from scade_tpu.data import scene as jscene
 from scade_tpu.ops import metrics as jmetrics
 from scade_tpu.utils import config as jconfig
 from scade_tpu.utils import logging as jlogging
+from scade_tpu_torch import cli
 from scade_tpu_torch.data import image_io
 from scade_tpu_torch.data import scene as pscene
 from scade_tpu_torch.eval.evaluate import write_images_with_metrics
@@ -104,8 +105,12 @@ def test_config_file_splicing_gives_equal_namespaces(tmp_path, variant):
 
 
 def test_multihost_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        config.parse_args("scannet", ["train", "--multihost"])
+    """--multihost parses (parallel/dist.py starts the process group); a
+    multihost train without --expname exits, as the JAX CLI does, since each
+    host's clock would name the run differently."""
+    assert config.parse_args("scannet", ["train", "--multihost"]).multihost
+    with pytest.raises(SystemExit, match="expname is required for multihost"):
+        cli.main("scannet", ["train", "--multihost", "--device", "cpu"])
 
 
 # ---- scene loaders ---------------------------------------------------------
@@ -140,10 +145,16 @@ def test_loaders_match_jax(scene_dir, tmp_path, loader):
     work = tmp_path / "scene"
     shutil.copytree(scene_dir, work)
     ours = LOADERS[loader](pscene, str(work))
-    # the port reads one .npy per hypothesis and writes nothing into the dump
-    assert not any(n.startswith(".scade_hyp_cache")
-                   for n in os.listdir(work / "train" / "leres_cimle" / "dump"))
+    # the port packs the hypotheses into the JAX package's blob cache, which
+    # scade_tpu then reads as it is (tests/test_torch_native_cache.py)
+    dump = work / "train" / "leres_cimle" / "dump"
+    cached = sorted(n for n in os.listdir(dump) if n.startswith(".scade_hyp_cache"))
+    has_hyps = ours.depth_hypothesis is not None
+    assert cached == ([".scade_hyp_cache.blob", ".scade_hyp_cache.blob.json"] if has_hyps else [])
+    assert (ours.hypothesis_load or "").startswith("npy:") == has_hyps
+    stamps = [(dump / n).stat().st_mtime_ns for n in cached]
     theirs = LOADERS[loader](jscene, str(work))
+    assert [(dump / n).stat().st_mtime_ns for n in cached] == stamps
     assert_scenes_equal(ours, theirs)
     if loader == "load_scene_scannet":
         assert ours.depth_hypothesis.shape == (2, 2, 32, 48, 1)
