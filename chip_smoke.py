@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch/CUDA port (scade_tpu_torch) on one NVIDIA card and checks it.
 
-    python3 chip_smoke.py [--seed N] [--steps N] [--k1-only | --dp-only N]
+    python3 chip_smoke.py [--seed N] [--steps N] [--k1-only | --prior-only | --dp-only N]
 
 Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
 at once), then prints one line per phase (with --k1-only the first two, for
@@ -49,10 +49,21 @@ comparing K1 builds of two trees on one card):
           1 rank run twice (the card's run-to-run spread is the witness: the
           first step's loss and gradients, the parameters' median distance),
           the ranks' parameters bit-equal, then a sharded `test` against 1 rank
-  prior   the depth prior's inference path: the full-width ResNeXt101-32x8d
-          cIMLE model (seeded weights, saved as a reference-format .pth and
-          loaded back) at the 448 crop, the card's f32 against the CPU's and
-          bf16 against f32, forward times and the FLOP bound; then
+  prior_train  the depth prior's training path as a user runs it:
+          `python -m scade_tpu_torch.prior.train` on the cli phase's kind of
+          scene with the full-width ResNeXt101-32x8d cIMLE model (v2,
+          d_latent 32, 448 crop, the five-loss criterion, fresh seeded
+          weights): one epoch at batch 4 (AdaIn init over the 18 views, a
+          recache of 20 z a view, 5 SGD steps) in f32 with TF32 off, then a
+          short bf16 run; its files and finite losses; step times at batch 4
+          in f32, f32+TF32 and bf16 against the FLOP bound; and one SGD step
+          on the card against the CPU's (two batches, one with quality 3
+          and planes so that every loss carries gradient), its update held
+          to the same step in f64 as the CPU's is
+  prior   the depth prior's inference path on the checkpoint prior_train
+          wrote: the model loaded as a user's .pth is, at the 448 crop, the
+          card's f32 against the CPU's and bf16 against f32, forward times
+          and the FLOP bound; then
           `python -m scade_tpu_torch.prior.dump` on the cli phase's kind of
           scene (360 hypotheses, K=20, bf16) and the CLI's `train` for 5 steps
           on what it wrote, K1 and K2 at 2 launches a step
@@ -62,13 +73,15 @@ phase's train run, error, times and bound), the card's name and power limit, and
 a JSON line naming the device. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Needs one card. With --dp-only N
 it runs the device phase and then the dp phase on N ranks (NCCL where there
-are N cards) and prints no result line.
+are N cards) and prints no result line; with --prior-only the device,
+prior_train and prior phases, and no result line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -94,7 +107,9 @@ from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.prior import data as prior_data
 from scade_tpu_torch.prior import dump as prior_dump
+from scade_tpu_torch.prior import losses as prior_losses
 from scade_tpu_torch.prior import model as prior_model
+from scade_tpu_torch.prior import train as prior_train
 from scade_tpu_torch.render.renderer import (
     SceneVars,
     make_render_config,
@@ -169,6 +184,24 @@ PRIOR_F32_TOL = 1e-3
 # bf16 against f32: mean relative difference, tests/test_prior.py's bound on
 # the JAX package's bf16 dump.
 PRIOR_BF16_REL = 0.05
+# The prior_train phase: the trainer's flags (its per-scene defaults, cut to
+# one epoch; every train view in the AdaIn init), and one SGD step on the
+# card (f32, TF32 off) against the same step on the CPU, from the same
+# weights, z and sampled pixels, B=1. Each loss within PRIOR_STEP_LOSS_REL of
+# the total loss (the plane loss is a sum of 1 − cos near 0, ~4e-6 here, so
+# its own relative error is a cancellation's). The BatchNorm running
+# statistics within PRIOR_STEP_BN_REL of each tensor's largest magnitude. The
+# parameters' update is held to a witness measured in the same run: the same
+# step on the CPU in f64. The f32 gradient of this model is ill-conditioned
+# (at B=1 the train-mode BatchNorms subtract the mean of nearly uniform
+# incoming gradients), so two f32 steps that sum in other orders differ by
+# several % of the largest update (4-6% card against CPU, H100 80GB HBM3, 700 W);
+# the card's update must lie no further from the f64 one than
+# PRIOR_STEP_WITNESS_RATIO times the CPU's f32 update does (L2 over all
+# parameters).
+PRIOR_TRAIN_ARGS = ["--epochs", "1", "--batchsize", "4", "--num_samples", "20",
+                    "--mini_batch_size", "5", "--adain_subset", str(N_TRAIN)]
+PRIOR_STEP_LOSS_REL, PRIOR_STEP_BN_REL, PRIOR_STEP_WITNESS_RATIO = 1e-3, 1e-3, 2.0
 # Video poses in write_scene's scene: the video task renders every 3rd.
 N_VIDEO = 6
 # Two runs of one program on the card agree in metrics.txt to this, relative
@@ -1414,23 +1447,26 @@ def prior_forward_ms(model, shifts, x, z, reps: int = 5) -> float:
         return cuda_ms(lambda: model(xb, zb, shifts), reps)
 
 
-class DumpProbe:
-    """Times the dump's forward passes (each ends in a copy to the host), its
-    host side per view (resize, polyfit, np.save) and the polyfits within
-    it, without changing them."""
+class TimeProbe:
+    """Times each call of the functions ``names`` of ``module`` (in ``s``,
+    by name), without changing them; with ``sync`` each call is ended by a
+    synchronize, so its time is the device's too."""
 
-    def __init__(self):
-        self.infer_s, self.write_s, self.fit_s = [], [], []
-        self._patches = [mock.patch.object(prior_dump, name, self._timed(getattr(prior_dump, name),
-                                                                          into))
-                         for name, into in (("infer", self.infer_s), ("write_view", self.write_s),
-                                            ("recover_metric_depth", self.fit_s))]
+    def __init__(self, module, names, sync: bool = False):
+        self.s = {name: [] for name in names}
+        self._patches = [mock.patch.object(module, name, self._timed(getattr(module, name),
+                                                                     self.s[name], sync))
+                         for name in names]
 
     @staticmethod
-    def _timed(fn, into):
+    def _timed(fn, into, sync):
         def wrapped(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
             into.append(time.perf_counter() - t0)
             return out
         return wrapped
@@ -1445,41 +1481,237 @@ class DumpProbe:
             p.stop()
 
 
-def phase_prior(seed: int) -> dict:
-    """The depth prior's inference path, then a NeRF trained on its output.
-    The full-width ResNeXt101-32x8d cIMLE model (v2, d_latent 32) with seeded
-    weights and AdaIn shifts, saved as a reference-format ``.pth`` and
-    ``mean_var_adain.npy`` and loaded back as a user's checkpoint is; on the
-    first view of a ScanNet-shaped scene at the 448 crop: the card's f32
-    forward (TF32 off) against the CPU's on 2 z, and bf16 against f32 on the
-    card on 20 z, with forward times in bf16, f32 with TF32 and f32; then
-    ``python -m scade_tpu_torch.prior.dump`` as a user runs it (K=20 in one
-    set of 20, bf16, the defaults) on the scene's 18 train views, which must
-    write 360 finite (468, 624) float32 files; then the CLI's ``train`` for 5
-    steps on those files, K1 and K2 at 2 launches a step."""
-    tmp = tempfile.mkdtemp(prefix="scade_prior_")
+def prior_step_on(device, state: dict, shifts: dict, batch: dict, z, draws: dict,
+                  dtype=torch.float32) -> dict:
+    """One SGD step of the trainer (TF32 off) from ``state`` on ``device``
+    in ``dtype``: the losses, and the state after it on the host."""
+    cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+    m = prior_model.DepthModelCIMLE(cfg, "v2")
+    m.load_state_dict(state, strict=True)
+    m.to(device, dtype)
+    tc = prior_train.PriorTrainConfig()
+    opt = prior_train.PriorOptimizer(m, tc)
+
+    def to(t):
+        return t.to(device, dtype) if t.is_floating_point() else t.to(device)
+
+    with prior_dump.matmul_precision("highest"):
+        total, losses = prior_train.train_step(
+            m, opt, {k: to(v) for k, v in shifts.items()}, {k: to(v) for k, v in batch.items()},
+            to(z), {k: tuple(t.to(device) for t in v) for k, v in draws.items()}, tc)
+    return dict(total=float(total), losses={k: float(v) for k, v in losses.items()},
+                state={k: v.detach().cpu() for k, v in m.state_dict().items()},
+                params=[n for n, _ in m.named_parameters()])
+
+
+def prior_step_check(ckpt: str, shifts: dict, examples: list, seed: int) -> dict:
+    """The card's SGD step against the CPU's on two one-view batches: the
+    scene's first view as the trainer reads it (quality 2, no planes), and
+    its second with quality 3 and a seeded plane mask (two planes over most
+    of the image), so that the PWN edge and plane losses carry gradient. The
+    same z and the same sampled pixels, drawn once on the host; the same
+    step on the CPU in f64 is the update's witness."""
+    state = torch.load(ckpt)["model_state_dict"]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, ex, quality in (("scene_view", examples[0], None), ("planes_q3", examples[1], 3)):
+        batch = prior_data.collate([ex])
+        if quality is not None:
+            S = batch["planes"].shape[1]
+            planes = np.zeros((1, S, S), np.int32)
+            planes[:, :, : S // 2] = 1
+            planes[:, : S // 2, S // 2:] = 2
+            planes[rng.uniform(size=planes.shape) < 0.05] = 0
+            batch.update(planes=planes, quality_flg=np.array([quality], np.int32))
+        batch = prior_train.batch_to_torch(batch, "cpu")
+        z = torch.randn((1, PRIOR_D_LATENT), generator=gen)
+        draws = prior_losses.draw_criterion(gen, batch, prior_losses.DEFAULT_LOSS_MODE)
+        t0 = time.perf_counter()
+        cpu = prior_step_on("cpu", state, shifts, batch, z, draws)
+        cpu_s = time.perf_counter() - t0
+        f64 = prior_step_on("cpu", state, shifts, batch, z, draws, torch.float64)
+        card = prior_step_on("cuda", state, shifts, batch, z, draws)
+        total = abs(cpu["losses"]["total_loss"])
+        loss_err = max(abs(card["losses"][k] - v) for k, v in cpu["losses"].items()) / total
+
+        def update(run):
+            return torch.cat([(run["state"][n].double() - state[n].double()).flatten()
+                              for n in cpu["params"]])
+
+        u_cpu, u_card, u64 = update(cpu), update(card), update(f64)
+        dist = {name: dict(l2=float((u - u64).norm()), max=float((u - u64).abs().max()))
+                for name, u in (("cpu_f32", u_cpu), ("card_f32", u_card))}
+        bn_err = max((card["state"][k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+                     for k, v in cpu["state"].items()
+                     if k.endswith(("running_mean", "running_var")))
+        out[name] = dict(losses_cpu=cpu["losses"], losses_card=card["losses"],
+                         losses_cpu_f64=f64["losses"], loss_max_err_rel_to_total=loss_err,
+                         update_l2_f64=float(u64.norm()), update_max_f64=float(u64.abs().max()),
+                         distance_from_f64=dist,
+                         card_vs_cpu_update_max=float((u_card - u_cpu).abs().max()),
+                         bn_max_rel_err=bn_err, cpu_step_s=cpu_s,
+                         ok=bool(loss_err <= PRIOR_STEP_LOSS_REL and bn_err <= PRIOR_STEP_BN_REL
+                                 and dist["card_f32"]["l2"]
+                                 <= PRIOR_STEP_WITNESS_RATIO * dist["cpu_f32"]["l2"]))
+    active = out["planes_q3"]["losses_card"]
+    out["edge_and_plane_active"] = bool(active["pairwise-normal-regress-edge_loss"] > 0
+                                        and active["pairwise-normal-regress-plane_loss"] > 0)
+    return out
+
+
+def phase_prior_train(tmp: str, seed: int) -> dict:
+    """The depth prior's training path, as a user runs it:
+    ``python -m scade_tpu_torch.prior.train`` on a ScanNet-shaped scene
+    (write_scene's, in ``tmp``) with the full-width ResNeXt101-32x8d v2
+    model (d_latent 32, 448 crop, the five-loss default), fresh seeded
+    weights, one epoch at batch 4: the AdaIn init over the 18 views, a
+    recache of 20 z (4 sets of 5) per view, 5 SGD steps, f32 with TF32 off;
+    then a short bf16 run (AdaIn init over 4 views, zero z, one epoch). It
+    must write the 4 encoder AdaIn means and variances, finite, cache an
+    (18, 32) finite z, log finite losses at every step and write
+    ``epoch0_step0.pth``; one SGD step on the card must equal the CPU's
+    (``prior_step_check``). Times: the AdaIn init per view, the recache per
+    image, a B=4 step in f32, f32 with TF32 and bf16 beside 3× the forward's
+    conv+linear FLOP bound, the criterion's forward+backward against the
+    model's. Returns the checkpoint and the AdaIn statistics for the prior
+    phase to dump from."""
+    log = io.StringIO()
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    try:
+        write_scene(tmp, seed)
+        scene_dir = os.path.join(tmp, "scene")
+        common = ["--scene_dir", scene_dir, "--seed_num", str(seed), "--d_latent",
+                  str(PRIOR_D_LATENT)]
+        log_dir, jsonl = os.path.join(tmp, "prior_log"), os.path.join(tmp, "prior_losses.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        names = ("compute_adain_stats", "recache_z", "train_step")
+        with TimeProbe(prior_train, names, sync=True) as probe, contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            out = prior_train.main([*common, "--log_dir", log_dir, *PRIOR_TRAIN_ARGS,
+                                    "--precision", "highest", "--loss_jsonl", jsonl])
+            command_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+        mv_path = os.path.join(log_dir, "mean_var_adain.npy")
+        mv = np.load(mv_path, allow_pickle=True).item()
+        dims = prior_model.encoder_adain_dims(cfg)
+        mv_ok = sorted(mv) == sorted(f"{w}{i}" for i in range(4) for w in ("mean", "var")) and all(
+            mv[f"{w}{i}"].shape == (d,) and np.isfinite(mv[f"{w}{i}"]).all()
+            for i, d in enumerate(dims) for w in ("mean", "var"))
+        z = out["z"]
+        recs = [json.loads(x) for x in open(jsonl).read().splitlines()]
+        n_steps = -(-N_TRAIN // 4)
+        steps_ok = len(recs) == n_steps and all(math.isfinite(v) for r in recs
+                                                for v in r.values())
+        ckpt = os.path.join(log_dir, "epoch0_step0.pth")
+
+        log16, jsonl16 = os.path.join(tmp, "prior_log_bf16"), os.path.join(tmp, "bf16.jsonl")
+        with TimeProbe(prior_train, ("train_step",), sync=True) as probe16, \
+                contextlib.redirect_stdout(log):
+            prior_train.main([*common, "--log_dir", log16, "--epochs", "1", "--batchsize", "4",
+                              "--adain_subset", "4", "--debug_mode", "--compute_dtype",
+                              "bfloat16", "--loss_jsonl", jsonl16])
+        recs16 = [json.loads(x) for x in open(jsonl16).read().splitlines()]
+        bf16_ok = len(recs16) == n_steps and all(math.isfinite(v) for r in recs16
+                                                 for v in r.values())
+
+        # a B=4 step, timed alone in each mode, on the trained model
+        model, shifts = out["model"], out["shifts"]
+        ds = prior_data.FinetuneDataset(os.path.join(scene_dir, "train"))
+        examples = [ds[i] for i in range(4)]
+        batch = prior_train.batch_to_torch(prior_data.collate(examples), dev)
+        z4 = torch.from_numpy(z[:4]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        mode = prior_losses.DEFAULT_LOSS_MODE
+        draws = prior_losses.draw_criterion(gen, batch, mode)
+        tc = prior_train.PriorTrainConfig()
+        opt = prior_train.PriorOptimizer(model, tc)
+        step_ms = {}
+        for name, precision, dtype in (("f32", "highest", None), ("f32_tf32", "high", None),
+                                       ("bf16", "highest", "bfloat16")):
+            tcm = dataclasses.replace(tc, compute_dtype=dtype)
+            with prior_dump.matmul_precision(precision):
+                step_ms[name] = cuda_ms(lambda: prior_train.train_step(
+                    model, opt, shifts, batch, z4, draws, tcm), reps=3)
+        model.train()
+        with prior_dump.matmul_precision("highest"):
+            with torch.no_grad():
+                depth = prior_model.prior_apply(model, shifts, batch["rgb"], z4, train=True)
+            leaf = depth.float().requires_grad_(True)
+            criterion_ms = cuda_ms(lambda: prior_losses.criterion(
+                leaf, batch, mode, draws)[1].mean().backward(), reps=3)
+            model_ms = cuda_ms(lambda: prior_model.prior_apply(
+                model, shifts, batch["rgb"], z4, train=True).mean().backward(), reps=3)
+            draw_ms = cuda_ms(lambda: prior_losses.draw_criterion(gen, batch, mode), reps=3)
+        model.eval()
+        step_flops = 3 * conv_linear_flops(model, batch["rgb"], z4, shifts)
+        del model, opt, out, leaf, depth
+        torch.cuda.empty_cache()
+
+        check = prior_step_check(ckpt, {k: v.cpu() for k, v in shifts.items()}, examples, seed)
+        adain_s, recache_s = probe.s["compute_adain_stats"][0], probe.s["recache_z"][0]
+        checks = {"AdaIn statistics: 4 finite means and variances": mv_ok,
+                  "cached z (18, 32), finite": z.shape == (N_TRAIN, PRIOR_D_LATENT)
+                  and bool(np.isfinite(z).all()),
+                  "finite losses every f32 step": steps_ok,
+                  "checkpoint written": os.path.exists(ckpt),
+                  "finite losses every bf16 step": bf16_ok,
+                  "card step = CPU step (scene view)": check["scene_view"]["ok"],
+                  "card step = CPU step (planes, quality 3)": check["planes_q3"]["ok"],
+                  "PWN edge and plane losses active": check["edge_and_plane_active"]}
+        line("prior_train", backbone="resnext101_32x8d", version="v2", d_latent=PRIOR_D_LATENT,
+             crop=448, views=N_TRAIN, argv=PRIOR_TRAIN_ARGS, command_s=command_s,
+             adain_s_per_view=adain_s / N_TRAIN, recache_s_per_image=recache_s / N_TRAIN,
+             recache_z=20, cli_step_ms=[1e3 * v for v in probe.s["train_step"]],
+             cli_bf16_step_ms=[1e3 * v for v in probe16.s["train_step"]],
+             losses_first_step=recs[0], step_ms_b4=step_ms, criterion_fwd_bwd_ms_b4=criterion_ms,
+             model_fwd_bwd_ms_b4=model_ms, criterion_draw_ms_b4=draw_ms,
+             step_gflop_b4=step_flops / 1e9,
+             step_bound_ms=dict(f32=step_flops / PEAK_F32 * 1e3,
+                                tf32=step_flops / PEAK_TF32 * 1e3,
+                                bf16=step_flops / PEAK_BF16 * 1e3),
+             peak_gb=peak_gb, phase_s=time.perf_counter() - t_phase, card_vs_cpu_step=check,
+             tol=dict(loss_rel_to_total=PRIOR_STEP_LOSS_REL, bn_rel=PRIOR_STEP_BN_REL,
+                      update_witness_ratio=PRIOR_STEP_WITNESS_RATIO), checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"prior_train: failed {bad}")
+        return {"ckpt": ckpt, "mean_var": mv_path}
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+
+
+def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
+    """The depth prior's inference path on what the prior_train phase wrote,
+    then a NeRF trained on its output. Its checkpoint of the full-width
+    ResNeXt101-32x8d cIMLE model (v2, d_latent 32) and its
+    ``mean_var_adain.npy``, loaded as a user's checkpoint is (strictly, and
+    bit-equal to the file); on the first view of the scene at the 448 crop:
+    the card's f32 forward (TF32 off) against the CPU's on 2 z, and bf16
+    against f32 on the card on 20 z, with forward times in bf16, f32 with
+    TF32 and f32; then ``python -m scade_tpu_torch.prior.dump`` as a user runs
+    it (K=20 in one set of 20, bf16, the defaults) on the scene's 18 train
+    views, which must write 360 finite (468, 624) float32 files; then the
+    CLI's ``train`` for 5 steps on those files, K1 and K2 at 2 launches a
+    step."""
     cwd = os.getcwd()
     log = io.StringIO()
     dev = torch.device("cuda")
     try:
-        write_scene(tmp, seed)
         scene_dir = os.path.join(tmp, "scene")
-        cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+        ckpt_path, mean_var = trained["ckpt"], trained["mean_var"]
         t0 = time.perf_counter()
-        net = prior_model.init_weights_(prior_model.DepthModelCIMLE(cfg, "v2"),
-                                        torch.Generator().manual_seed(seed))
-        ckpt_path, mean_var = os.path.join(tmp, "prior.pth"), os.path.join(tmp, "mv.npy")
-        torch.save({"model_state_dict": net.state_dict()}, ckpt_path)
-        rng = np.random.default_rng(seed)
-        np.save(mean_var, {f"{w}{i}": (0.1 * rng.standard_normal((1, d)) if w == "mean"
-                                       else rng.uniform(0.0, 0.2, (1, d))).astype(np.float32)
-                           for i, d in enumerate(prior_model.encoder_adain_dims(cfg))
-                           for w in ("mean", "var")})
+        saved = torch.load(ckpt_path)["model_state_dict"]
         cpu_model = prior_dump.build_prior(ckpt_path, device="cpu")
-        loaded_equal = all(torch.equal(a, b) for a, b in zip(net.state_dict().values(),
-                                                             cpu_model.state_dict().values()))
-        n_params = sum(p.numel() for p in net.parameters())
-        del net
+        loaded = cpu_model.state_dict()
+        loaded_equal = saved.keys() == loaded.keys() and all(torch.equal(saved[k], v)
+                                                             for k, v in loaded.items())
+        n_params = sum(p.numel() for p in cpu_model.parameters())
+        del saved, loaded
         setup_s = time.perf_counter() - t0
         shifts_cpu = prior_model.load_mean_var_adain(mean_var)
         shifts = {k: v.to(dev) for k, v in shifts_cpu.items()}
@@ -1529,7 +1761,8 @@ def phase_prior(seed: int) -> dict:
         # the dump as a user runs it
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with DumpProbe() as probe, contextlib.redirect_stdout(log):
+        with TimeProbe(prior_dump, ("infer", "write_view", "recover_metric_depth")) as probe, \
+                contextlib.redirect_stdout(log):
             t0 = time.perf_counter()
             out_dir = prior_dump.main(["--scene_dir", scene_dir, "--ckpt", ckpt_path,
                                        "--mean_var", mean_var, "--dump_dir", "prior",
@@ -1569,7 +1802,8 @@ def phase_prior(seed: int) -> dict:
                   "finite forward": bool(np.isfinite(f32_20).all() and np.isfinite(bf16_20).all()),
                   "360 hypothesis files": files_ok,
                   "NeRF launches per step": steps_ok, "NeRF finite loss": finite}
-        n_views = len(probe.write_s)
+        infer_s, write_s = probe.s["infer"], probe.s["write_view"]
+        n_views = len(write_s)
         line("prior", backbone="resnext101_32x8d", version="v2", d_latent=PRIOR_D_LATENT,
              crop=448, K=PRIOR_K, params=n_params, setup_s=setup_s,
              f32_vs_cpu=dict(max_abs_err=f32_err, max_abs_out=f32_scale,
@@ -1582,12 +1816,12 @@ def phase_prior(seed: int) -> dict:
              bound_ms=dict(bf16=flops / PEAK_BF16 * 1e3, tf32=flops / PEAK_TF32 * 1e3,
                            f32=flops / PEAK_F32 * 1e3),
              dump=dict(command_s=dump_s, views=n_views, files=len(names),
-                       forward_s_per_view=sum(probe.infer_s) / n_views,
-                       forward_s_first_view=probe.infer_s[0],
-                       forward_s_per_view_after_first=statistics.median(probe.infer_s[1:]),
-                       host_s_per_view=sum(probe.write_s) / n_views,
-                       host_s_per_view_median=statistics.median(probe.write_s),
-                       polyfit_s_per_view=sum(probe.fit_s) / n_views,
+                       forward_s_per_view=sum(infer_s) / n_views,
+                       forward_s_first_view=infer_s[0],
+                       forward_s_per_view_after_first=statistics.median(infer_s[1:]),
+                       host_s_per_view=sum(write_s) / n_views,
+                       host_s_per_view_median=statistics.median(write_s),
+                       polyfit_s_per_view=sum(probe.s["recover_metric_depth"]) / n_views,
                        peak_gb=dump_peak_gb, hypothesis_range=hyp_range),
              nerf=dict(steps=PRIOR_NERF_STEPS, command_s=nerf_s, loss_first=losses[0],
                        loss_last=losses[-1], launches_per_step=train.step_launches,
@@ -1602,6 +1836,16 @@ def phase_prior(seed: int) -> dict:
         raise
     finally:
         os.chdir(cwd)
+
+
+def phase_prior_paths(seed: int) -> None:
+    """prior_train, then prior on what it wrote, in one temporary scene."""
+    tmp = tempfile.mkdtemp(prefix="scade_prior_")
+    try:
+        trained = phase_prior_train(tmp, seed)
+        torch.cuda.empty_cache()
+        phase_prior(tmp, seed, trained)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1614,6 +1858,9 @@ def main() -> int:
     parser.add_argument("--k1-only", action="store_true",
                         help="run the device and k1 phases only and print no result line: "
                              "for comparing K1 builds of two trees on one card")
+    parser.add_argument("--prior-only", action="store_true",
+                        help="run the device phase, then the prior_train and prior phases, and "
+                             "print no result line: for the prior's paths alone")
     parser.add_argument("--dp-only", type=int, default=0, metavar="N",
                         help="run the device phase, then the dp phase on N ranks on a "
                              "freshly written scene, and print no result line: for data "
@@ -1634,6 +1881,9 @@ def main() -> int:
             phase_dp(tmp, args.seed, args.dp_only)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+        return 0
+    if args.prior_only:
+        phase_prior_paths(args.seed)
         return 0
     k1 = phase_k1(gen, dev["hmma"])
     if args.k1_only:
@@ -1657,7 +1907,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    phase_prior(args.seed)
+    phase_prior_paths(args.seed)
 
     # launches: the CLI's train run (20 steps and 6 rendered views), the main
     # path as a user drives it; launches_train_phase: the bare train phase's

@@ -6,7 +6,8 @@ FFM :804, AO :851; Resnext_torch.py Bottleneck :84-130, AdaIn_v2
 :538-590). Submodules carry the reference's state_dict names (``mlp.{0,2,4,6}``,
 ``conv.{0,3,6}``, ``conv_branch.{1,2,4}``, ``adapt_conv.{0,1,3}``,
 ``downsample.{0,1}``), so a reference checkpoint loads into them as it is.
-BatchNorm uses eps 1e-5; this module serves inference (eval mode).
+Every BatchNorm is ``BatchNorm2d`` below: eps 1e-5, and in train mode the
+JAX package's (flax's) law for the running statistics.
 """
 
 from __future__ import annotations
@@ -25,8 +26,33 @@ def upsample_align_corners(x: torch.Tensor, factor: int) -> torch.Tensor:
     return resize_align_corners(x, (x.shape[2] * factor, x.shape[3] * factor))
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5, the same state_dict) whose train-mode
+    forward follows flax's ``nn.BatchNorm(momentum=0.9)``: it normalizes with
+    the batch's biased variance, as torch does, but also moves
+    ``running_var`` towards that biased variance, where torch would use the
+    unbiased one. The statistics are taken in f32 at least, whatever the
+    input's dtype (flax's ``force_float32_reductions``). Eval mode is torch's
+    own."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels)
 
 
 def _conv3x3(cin: int, cout: int, bias: bool = True, stride: int = 1, groups: int = 1):

@@ -3,7 +3,8 @@ state_dict names, and loading of reference-format checkpoints.
 
 The name map is the port's own copy of ``scade_tpu/prior/translate.py``'s
 (reference names: Resnext_torch.py ResNet_cIMLE, network_auxi.py
-Decoder/FTB/FFM/AO/AdaIn), for the encoder-side models this package builds.
+Decoder/FTB/FFM/AO/AdaIn, Decoder_cIMLE), for the encoder- and decoder-side
+models this package builds.
 Conventions: flax conv kernel (kH, kW, I/g, O) is torch (O, I/g, kH, kW);
 flax Dense (I, O) is Linear (O, I); flax BatchNorm scale/bias and its
 batch_stats mean/var are weight/bias/running_mean/running_var.
@@ -14,12 +15,12 @@ A JAX-trained flax msgpack reaches the port through
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from scade_tpu_torch.prior.model import PriorConfig
+from scade_tpu_torch.prior.model import DEC_TAPS, PriorConfig
 
 _PREFIXES = ("module.", "depth_model.", "model.")
 
@@ -80,11 +81,14 @@ def _ao_pairs(torch_base: str, our_base: str):
             (f"{torch_base}.adapt_conv.3", f"{our_base}.Conv_1", "conv")]
 
 
-def name_map(cfg: PriorConfig, version: str = "v2", adain: bool = True
-             ) -> List[Tuple[str, str, str]]:
+def name_map(cfg: PriorConfig, version: str = "v2", adain: bool = True,
+             dec_version: Optional[str] = None) -> List[Tuple[str, str, str]]:
     """(torch name, flax path, kind) for every layer of DepthModelCIMLE:
     ``version`` "v2" (AdaIn) or "v3" (AdaIn_v2) encoder taps; ``adain=False``
-    the plain backbone."""
+    the plain backbone. ``dec_version`` "v2"–"v6": DepthModelCIMLEDec, the
+    plain backbone and Decoder_cIMLE's taps (translate.py:106-183)."""
+    if dec_version is not None:
+        adain = False
     pairs = [("encoder_modules.conv1", "encoder.conv1", "conv"),
              ("encoder_modules.bn1", "encoder.BatchNorm_0", "bn")]
     if adain:
@@ -100,6 +104,10 @@ def name_map(cfg: PriorConfig, version: str = "v2", adain: bool = True
             has_ds = b == 0 and (s != 1 or inplanes != out_ch)
             pairs += _block_pairs(li + 1, b, has_ds, cfg.block)
             inplanes = out_ch
+    if dec_version is not None:
+        fn = _adain_pairs if dec_version == "v2" else _adain_v2_pairs
+        for i in range(DEC_TAPS[dec_version]):
+            pairs += fn(f"decoder_modules.style_mod{i}", f"decoder.style_mod{i}")
     pairs += _ftb_pairs("decoder_modules.conv", "decoder.conv")
     pairs += [("decoder_modules.conv1", "decoder.conv1", "conv")]
     for name in ("ffm2", "ffm1", "ffm0"):
@@ -145,10 +153,12 @@ def tree_to_state_dict(params: dict, batch_stats: dict, pairs) -> Dict[str, torc
 
 
 def state_dict_from_flax(params: dict, batch_stats: dict, cfg: PriorConfig,
-                         version: str = "v2") -> Dict[str, torch.Tensor]:
+                         version: str = "v2", cimle_version: str = "enc"
+                         ) -> Dict[str, torch.Tensor]:
     """The JAX package's prior variables (numpy trees) → a state_dict that
-    ``DepthModelCIMLE(cfg, version)`` loads strictly."""
-    return tree_to_state_dict(params, batch_stats, name_map(cfg, version))
+    ``build_prior_model(cfg, version, cimle_version)`` loads strictly."""
+    dec = version if cimle_version == "dec" else None
+    return tree_to_state_dict(params, batch_stats, name_map(cfg, version, dec_version=dec))
 
 
 def load_prior_checkpoint(path: str) -> Dict[str, torch.Tensor]:

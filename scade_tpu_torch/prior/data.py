@@ -12,8 +12,8 @@ ambiguity_aware_prior/data/finetune_dataset.py:460-660):
   nearest to the crop, then normalized to max → 10 with invalids at −1;
 - rgb: bilinear resize to the crop, ImageNet mean/var normalization.
 
-Everything is numpy, HWC, as read from disk; the dump turns an image into an
-NCHW tensor on the device. OpenCV is required to read the images.
+Everything is numpy, HWC, as read from disk; the dump and the trainer turn
+an image into an NCHW tensor on the device. OpenCV is required to read the images.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import List
 
 import numpy as np
 
@@ -39,6 +40,11 @@ def normalize_rgb(rgb_uint8: np.ndarray) -> np.ndarray:
     """uint8 HWC RGB → normalized float32 HWC."""
     x = rgb_uint8.astype(np.float32) / 255.0
     return (x - RGB_MEANS) / RGB_VARS
+
+
+def denormalize_rgb(x: np.ndarray) -> np.ndarray:
+    """Normalized float HWC → uint8 RGB."""
+    return np.clip((x * RGB_VARS + RGB_MEANS) * 255.0, 0, 255).astype(np.uint8)
 
 
 @dataclasses.dataclass
@@ -128,3 +134,18 @@ class FinetuneDataset:
     def load_sfm_depth(self, idx: int) -> np.ndarray:
         """Raw-resolution sparse SfM depth in meters (the dump's alignment target)."""
         return _imread(self.sfm_depth_paths[idx], unchanged=True).astype(np.float64) / 1000.0
+
+
+def collate(examples: List[PriorExample]) -> dict:
+    """Stacks examples into the batch the loss criterion reads
+    (multi_depth_model_auxiv2.py:209-341), numpy and HWC as the JAX
+    package's ``collate`` gives it; ``prior.train.batch_to_torch`` makes it
+    NCHW tensors on a device."""
+    return {
+        "rgb": np.stack([e.rgb for e in examples]),
+        "depth": np.stack([e.depth for e in examples]),
+        "disp": np.stack([e.disp for e in examples]),
+        "planes": np.stack([e.planes for e in examples]).astype(np.int32),
+        "focal_length": np.array([e.focal_length for e in examples], np.float32),
+        "quality_flg": np.array([e.quality_flg for e in examples], np.int32),
+    }

@@ -1,10 +1,12 @@
-"""The cIMLE-conditioned monocular depth model, encoder-side variant.
+"""The cIMLE-conditioned monocular depth model, encoder- and decoder-side.
 
-Encoder: a ResNeXt101-32x8d (or another zoo backbone) feature pyramid with
-AdaIn(z) after conv1 and after layer1/2/3 (reference:
-ambiguity_aware_prior/lib/models/Resnext_torch.py:336-508 and :592-768 for
-the image-conditioned v3 taps). Decoder: the LeReS top-down refinement
-(network_auxi.py:173-231). The counterpart of ``scade_tpu/prior/model.py``.
+Encoder side (``DepthModelCIMLE``): a ResNeXt101-32x8d (or another zoo
+backbone) feature pyramid with AdaIn(z) after conv1 and after layer1/2/3
+(reference: ambiguity_aware_prior/lib/models/Resnext_torch.py:336-508 and
+:592-768 for the image-conditioned v3 taps), then the LeReS top-down decoder
+(network_auxi.py:173-231). Decoder side (``DepthModelCIMLEDec``): the plain
+backbone, then a decoder with AdaIn(z) at up to 4 taps (network_auxi.py
+:320-520). The counterpart of ``scade_tpu/prior/model.py``.
 
 The modules are named as the reference's state_dict is
 (``encoder_modules.*``, ``decoder_modules.*``), so a reference checkpoint
@@ -32,6 +34,7 @@ from scade_tpu_torch.prior.blocks import (
     AdaIn,
     AdaInV2,
     BasicBlock,
+    BatchNorm2d,
     Bottleneck,
     upsample_align_corners,
 )
@@ -85,12 +88,26 @@ def encoder_adain_dims(cfg: PriorConfig):
     return (64,) + tuple(p * cfg.expansion for p in (64, 128, 256))
 
 
-def zero_shifts(cfg: PriorConfig) -> Dict[str, torch.Tensor]:
+def decoder_adain_dims(cfg: PriorConfig):
+    """Channels at the 4 decoder AdaIn taps (train_single.py:310-313:
+    2048/512/256/256)."""
+    return (cfg.bottleneck_dims[3],) + tuple(cfg.lateral_out[:3])
+
+
+def _zeros(dims) -> Dict[str, torch.Tensor]:
     out = {}
-    for i, d in enumerate(encoder_adain_dims(cfg)):
+    for i, d in enumerate(dims):
         out[f"mean{i}"] = torch.zeros(d)
         out[f"var{i}"] = torch.zeros(d)
     return out
+
+
+def zero_shifts(cfg: PriorConfig) -> Dict[str, torch.Tensor]:
+    return _zeros(encoder_adain_dims(cfg))
+
+
+def zero_shifts_dec(cfg: PriorConfig) -> Dict[str, torch.Tensor]:
+    return _zeros(decoder_adain_dims(cfg))
 
 
 def load_mean_var_adain(path: str, device=None) -> Dict[str, torch.Tensor]:
@@ -112,7 +129,7 @@ class ResNeXtCIMLE(nn.Module):
         super().__init__()
         self.cfg, self.use_adain, self.adain_version = cfg, use_adain, adain_version
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64)
         if use_adain:
             for i, ch in enumerate(encoder_adain_dims(cfg)):
                 mod = (AdaInV2(cfg.d_latent, ch) if adain_version == "v3"
@@ -141,17 +158,21 @@ class ResNeXtCIMLE(nn.Module):
             return mod(h, z, input_image, shifts[f"mean{i}"], shifts[f"var{i}"])
         return mod(h, z, shifts[f"mean{i}"], shifts[f"var{i}"])
 
-    def forward(self, x, z=None, shifts=None):
+    def forward(self, x, z=None, shifts=None, return_adain: bool = False):
+        """The 4 feature maps; with ``return_adain`` the 4 activations just
+        after the AdaIn taps instead (Resnext_torch.py:486-508)."""
         input_image = x
         x = self._style(0, self.conv1(x), z, input_image, shifts)
+        adains = [x]
         x = F.max_pool2d(F.relu(self.bn1(x)), 3, 2, 1)
         features = []
         for li in range(4):
             x = getattr(self, f"layer{li + 1}")(x)
             if li < 3:
                 x = self._style(li + 1, x, z, input_image, shifts)
+                adains.append(x)
             features.append(x)
-        return features
+        return adains if return_adain else features
 
 
 class Decoder(nn.Module):
@@ -175,6 +196,47 @@ class Decoder(nn.Module):
         return self.outconv(self.ffm0(features[0], x_4))
 
 
+# Decoder-side cIMLE: how many of the 4 taps each version styles.
+DEC_TAPS = {"v2": 4, "v3": 4, "v4": 3, "v5": 2, "v6": 1}
+
+
+class DecoderCIMLE(Decoder):
+    """The decoder with AdaIn(z) at the 1/32 features, after the FTB, after
+    ffm2 and after ffm1 (network_auxi.py:320-520): z-MLP AdaIn for "v2",
+    image-conditioned AdaInV2 with 2× scales (network_auxi.py:290) at the
+    first 4/3/2/1 taps for "v3"–"v6"."""
+
+    def __init__(self, cfg: PriorConfig, version: str = "v2"):
+        super().__init__(cfg)
+        if version not in DEC_TAPS:
+            raise ValueError(f"decoder cIMLE supports version v2-v6, got {version!r}")
+        self.version, self.n_taps = version, DEC_TAPS[version]
+        for i, ch in enumerate(decoder_adain_dims(cfg)[:self.n_taps]):
+            self.add_module(f"style_mod{i}", AdaIn(cfg.d_latent, ch) if version == "v2"
+                            else AdaInV2(cfg.d_latent, ch, 2.0, 2.0))
+
+    def _style(self, i, h, z, input_image, shifts):
+        if i >= self.n_taps:
+            return h
+        mod = getattr(self, f"style_mod{i}")
+        if self.version == "v2":
+            return mod(h, z, shifts[f"mean{i}"], shifts[f"var{i}"])
+        return mod(h, z, input_image, shifts[f"mean{i}"], shifts[f"var{i}"])
+
+    def forward(self, features, z, shifts, input_image, return_adain: bool = False):
+        """The depth logit; with ``return_adain`` the 4 tap activations
+        (styled where the version taps; Decoder_cIMLE.get_adain_init_act,
+        network_auxi.py:570-616)."""
+        f3 = self._style(0, features[3], z, input_image, shifts)
+        x_32x = self._style(1, self.conv(f3), z, input_image, shifts)
+        x_16 = upsample_align_corners(self.conv1(x_32x), 2)
+        x_8 = self._style(2, self.ffm2(features[2], x_16), z, input_image, shifts)
+        x_4 = self._style(3, self.ffm1(features[1], x_8), z, input_image, shifts)
+        if return_adain:
+            return [f3, x_32x, x_8, x_4]
+        return self.outconv(self.ffm0(features[0], x_4))
+
+
 class DepthModelCIMLE(nn.Module):
     """encoder(x, z) → decoder → (B, 1, H, W) depth logit. ``version``: "v2"
     (z-MLP AdaIn, the shipped path) or "v3" (image-conditioned AdaInV2)."""
@@ -182,19 +244,55 @@ class DepthModelCIMLE(nn.Module):
     def __init__(self, cfg: PriorConfig, version: str = "v2"):
         super().__init__()
         if version not in ("v2", "v3"):
-            raise ValueError(f"encoder cIMLE supports version v2/v3, got {version!r}")
+            raise ValueError(f"encoder cIMLE supports version v2/v3, got {version!r}; "
+                             "v4-v6 are decoder-side versions")
         self.cfg, self.version = cfg, version
         self.encoder_modules = ResNeXtCIMLE(cfg, adain_version=version)
         self.decoder_modules = Decoder(cfg)
 
-    def forward(self, x, z, shifts):
-        return self.decoder_modules(self.encoder_modules(x, z, shifts))
+    def forward(self, x, z, shifts, return_adain: bool = False):
+        feats = self.encoder_modules(x, z, shifts, return_adain)
+        return feats if return_adain else self.decoder_modules(feats)
 
 
-def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+class DepthModelCIMLEDec(nn.Module):
+    """Decoder-side cIMLE: the plain backbone, then ``DecoderCIMLE``
+    (RelDepthModel_cIMLE_decoder / DepthModel_cIMLE_v2,
+    multi_depth_model_auxiv2.py:115-178, 506-548)."""
+
+    def __init__(self, cfg: PriorConfig, version: str = "v2"):
+        super().__init__()
+        self.cfg, self.version = cfg, version
+        self.encoder_modules = ResNeXtCIMLE(cfg, use_adain=False)
+        self.decoder_modules = DecoderCIMLE(cfg, version)
+
+    def forward(self, x, z, shifts, return_adain: bool = False):
+        return self.decoder_modules(self.encoder_modules(x), z, shifts, x, return_adain)
+
+
+def build_prior_model(cfg: PriorConfig, version: str = "v2", cimle_version: str = "enc"
+                      ) -> nn.Module:
+    """``DepthModelCIMLE`` (z into the encoder, ``cimle_version`` "enc") or
+    ``DepthModelCIMLEDec`` ("dec"), as the JAX package's ``init_prior``
+    dispatches (multi_depth_model_auxiv2.py:55-178)."""
+    if cimle_version == "dec":
+        return DepthModelCIMLEDec(cfg, version)
+    return DepthModelCIMLE(cfg, version)
+
+
+def zero_shifts_for(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Zero AdaIn shifts with the dims of ``model``'s taps."""
+    if isinstance(model, DepthModelCIMLEDec):
+        return zero_shifts_dec(model.cfg)
+    return zero_shifts(model.cfg)
+
+
+def init_weights_(model: nn.Module, generator: torch.Generator, random_stats: bool = True
+                  ) -> nn.Module:
     """Seeded weights in place: conv and linear weights lecun-normal (the JAX
     package's init), biases 0, BN scale/bias 1/0 and running statistics drawn
-    around 0 and 1, so eval-mode BN does not reduce to the identity."""
+    around 0 and 1, so eval-mode BN does not reduce to the identity; with
+    ``random_stats=False`` the running statistics are flax's initial 0 and 1."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -206,18 +304,33 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=generator))
-                m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=generator))
+                if random_stats:
+                    m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=generator))
+                    m.running_var.copy_(0.5 + torch.rand(m.num_features, generator=generator))
+                else:
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
     return model
 
 
-def prior_apply(model: DepthModelCIMLE, shifts: Dict[str, torch.Tensor], x: torch.Tensor,
-                z: torch.Tensor) -> torch.Tensor:
-    """Eval-mode forward. x: (B, 3, H, W) normalized rgb; z: (B, d_latent).
-    Returns (B, 1, H, W)."""
-    if model.training:
-        raise ValueError("prior_apply runs the model in eval mode: call model.eval() first")
+def prior_apply(model: nn.Module, shifts: Dict[str, torch.Tensor], x: torch.Tensor,
+                z: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """The forward. x: (B, 3, H, W) normalized rgb; z: (B, d_latent).
+    Returns (B, 1, H, W). ``train`` (the model in train mode) normalizes with
+    the batch's statistics and moves every BatchNorm's running statistics,
+    in place, as the JAX package's ``prior_apply(train=True)`` returns them."""
+    if model.training != train:
+        mode = "train" if train else "eval"
+        raise ValueError(f"prior_apply(train={train}) runs the model in {mode} mode: "
+                         f"call model.{mode}() first")
     return model(x, z, shifts)
+
+
+def get_adain_init_act(model: nn.Module, shifts: Dict[str, torch.Tensor], x: torch.Tensor,
+                       z: torch.Tensor):
+    """The 4 AdaIn-tap activations the AdaIn statistics are taken from
+    (Resnext_torch.py:486-508; the decoder's for the decoder-side model)."""
+    return model(x, z, shifts, return_adain=True)
 
 
 def prior_inference(model: DepthModelCIMLE, shifts, x, z, rescaled: bool = False,

@@ -19,6 +19,7 @@ state, so a run resumed from step N continues exactly as if uninterrupted.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -152,7 +153,11 @@ def train_nerf(scene, args, ranks: Optional[Ranks] = None):
     device = check_device(args.device)
     rc, tc = args_to_configs(args)
     if ranks is not None and tc.n_rand % ranks.world:
-        raise ValueError(f"--N_rand {tc.n_rand} does not split evenly over {ranks.world} ranks")
+        # as the JAX loop does over its devices (scade_tpu/train/loop.py:225-231)
+        n_rand = -(-tc.n_rand // ranks.world) * ranks.world
+        print(f"WARNING: N_rand={tc.n_rand} not divisible by {ranks.world} devices; "
+              f"rounding up to {n_rand}")
+        tc = dataclasses.replace(tc, n_rand=n_rand)
     primary = ranks is None or ranks.primary
 
     # val/test get GT depth where it exists (:843-847)

@@ -27,7 +27,7 @@ import torch
 
 from scade_tpu_torch import cli
 from scade_tpu_torch.parallel import dist
-from scade_tpu_torch.train import loop, step
+from scade_tpu_torch.train import step
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
@@ -235,20 +235,25 @@ def test_test_opt_runs_on_rank_0_only(root, monkeypatch):
     assert "psnr" in (run / "test_images_with_optimization_scene" / "metrics.txt").read_text()
 
 
-def test_rays_must_split_evenly_over_ranks(root):
+def test_rays_must_split_evenly_over_ranks(root, monkeypatch):
+    """A rank's block must be even; a run whose N_rand is not rounds it up
+    and warns, as the JAX loop does over its devices: 2 ranks at N_rand 15
+    train what 1 process trains at 16."""
     ranks = dist.Ranks(1, 2)
     assert ranks.block(16) == slice(8, 16)
     with pytest.raises(ValueError, match="evenly"):
         ranks.block(15)
-    args = cli_args(root, "odd", "--N_rand", "15")
-    with pytest.raises(ValueError, match="does not split evenly over 2 ranks"):
-        loop.train_nerf(None, args, ranks)
-
-
-def cli_args(root, expname, *extra):
-    from scade_tpu_torch.utils.config import parse_args
-
-    return parse_args("scannet", ["train", *common(root, expname), *extra])
+    monkeypatch.chdir(root)
+    one = cli.main("scannet", ["train", *common(root, "even"), *TRAIN])
+    log, ranks = two_ranks(root, "odd", ["train", *common(root, "odd"), *TRAIN,
+                                         "--N_rand", "15"])
+    assert "WARNING: N_rand=15 not divisible by 2 devices; rounding up to 16" in log
+    assert "Training data-parallel over 2 ranks, 8 rays a rank" in log
+    p0, p1 = (torch.load(ranks[0]["out"] / f"rank{r}.pt") for r in range(2))
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    ref = {f"{w}.{n}": t for w, m in (("coarse", one.model_coarse), ("fine", one.model_fine))
+           for n, t in m.state_dict().items()}
+    assert max((p0[k] - ref[k]).abs().max().item() for k in ref) <= TOL
 
 
 def test_multihost_needs_a_launcher(root, monkeypatch):
