@@ -67,14 +67,28 @@ comparing K1 builds of two trees on one card):
           `python -m scade_tpu_torch.prior.dump` on the cli phase's kind of
           scene (360 hypotheses, K=20, bf16) and the CLI's `train` for 5 steps
           on what it wrote, K1 and K2 at 2 launches a step
+  prior_pretrain  the prior's pretraining path as a user runs it: a corpus in
+          the reference's layout (16 taskonomy views at 512x512 with depth
+          and planes, 8 diml_ganet views at 432x768 with disparity), then
+          `python -m scade_tpu_torch.prior.train --dataset multi` for one
+          epoch of the full-width model (16 examples interleaved, the AdaIn
+          init over 8, a recache of 20 z each, 4 steps at batch 4, f32 with
+          TF32 off); its files, finite losses, the sources' order; step, recache
+          and host read times, peak memory. Then (line prior_dp) its
+          checkpoint's first step at global batch 4 on 2 ranks (torchrun,
+          gloo on the one card) against the 1-rank step and the f64 step, and
+          the baseline model (ResNeXt101 + AuxiNetV2): card f32 against the
+          CPU, a train-mode forward and backward with both criteria at batch 4
 
 then the kernels line (one JSON object per kernel: launches in the cli
 phase's train run, error, times and bound), the card's name and power limit, and last
 a JSON line naming the device. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Needs one card. With --dp-only N
-it runs the device phase and then the dp phase on N ranks (NCCL where there
-are N cards) and prints no result line; with --prior-only the device,
-prior_train and prior phases, and no result line.
+it runs the device phase, then the dp phase on N ranks (NCCL where there
+are N cards) and the prior's first step over N ranks from seeded weights
+(line prior_dp; N divides 4), and prints no result line; with --prior-only
+the device, prior_train, prior and prior_pretrain phases, and no result
+line.
 """
 
 from __future__ import annotations
@@ -202,6 +216,30 @@ PRIOR_BF16_REL = 0.05
 PRIOR_TRAIN_ARGS = ["--epochs", "1", "--batchsize", "4", "--num_samples", "20",
                     "--mini_batch_size", "5", "--adain_subset", str(N_TRAIN)]
 PRIOR_STEP_LOSS_REL, PRIOR_STEP_BN_REL, PRIOR_STEP_WITNESS_RATIO = 1e-3, 1e-3, 2.0
+# The prior_pretrain phase: a corpus in the reference's layout of two
+# sources (name: images, height, width): taskonomy's square 512 renders with
+# depth and plane masks, diml_ganet's non-square frames with disparity only.
+# One epoch of the sampler's order (each source extended to the longest, 16,
+# then cut by the sample ratio: 2 × 8 = 16 examples, 4 steps at batch 4)
+# after an AdaIn init over the first 8 and a recache of 20 z each.
+PRETRAIN_CORPUS = {"taskonomy": (16, 512, 512), "diml_ganet": (8, 432, 768)}
+PRETRAIN_SAMPLE_RATIO = 0.5
+PRETRAIN_ARGS = ["--epochs", "1", "--batchsize", "4", "--num_samples", "20",
+                 "--mini_batch_size", "5", "--adain_subset", "8",
+                 "--sample_ratio", str(PRETRAIN_SAMPLE_RATIO)]
+# Its 2-rank check: the first step at global B=4 on 2 ranks (gloo on the one
+# card) against the 1-rank step, f32 without TF32, from the same weights, z
+# and draws. Each loss within PRETRAIN_DP_LOSS_REL of the total loss; the
+# BatchNorm running statistics within PRETRAIN_DP_BN_REL of each tensor's
+# largest magnitude; the update by the prior_train phase's rule: the 2-rank
+# update no further from the same step in f64 than PRIOR_STEP_WITNESS_RATIO
+# times the 1-rank f32 update is (L2 over all parameters).
+PRETRAIN_DP_LOSS_REL, PRETRAIN_DP_BN_REL = 1e-3, 1e-4
+# Steps each rank times after the checked one.
+PRETRAIN_DP_TIMED = 1
+# The baseline model's auxi losses, on top of the five-loss default.
+AUXI_LOSS_MODE = (prior_losses.DEFAULT_LOSS_MODE
+                  + "ranking-edge-auxi_msgil-normal-auxi_meanstd-tanh-auxi_")
 # Video poses in write_scene's scene: the video task renders every 3rd.
 N_VIDEO = 6
 # Two runs of one program on the card agree in metrics.txt to this, relative
@@ -1838,8 +1876,321 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
         os.chdir(cwd)
 
 
+def corpus_image(rng, H: int, W: int):
+    """One corpus view, as tools/make_prior_corpus.py makes them: a smooth
+    depth gradient with 2–4 slanted half-plane walls, each a plane instance,
+    and an RGB correlated with both. → rgb uint8, depth (float, > 0),
+    planes uint8."""
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    depth = 2.0 + 1.5 * xx + 1.0 * yy
+    planes = np.zeros((H, W), np.uint8)
+    for pid in range(1, int(rng.integers(2, 5)) + 1):
+        a, b = rng.normal(size=2)
+        region = (a * (xx - 0.5) + b * (yy - 0.5) + rng.uniform(-0.5, 0.5)) > 0
+        slant = 1.0 + 0.8 * rng.random() * xx + 0.8 * rng.random() * yy
+        depth = np.where(region, 0.8 + 1.2 * rng.random() * slant, depth)
+        planes[region] = pid
+    rgb = np.stack([np.clip(50 + 40 * depth + 20 * rng.normal(size=(H, W)), 0, 255),
+                    np.clip(30 + 300 * planes.astype(np.float64), 0, 255),
+                    np.clip(200 - 30 * depth, 0, 255)], -1).astype(np.uint8)
+    return rgb, depth, planes
+
+
+def write_corpus(root: str, seed: int) -> dict:
+    """PRETRAIN_CORPUS in the reference's layout under ``root`` (the layout
+    tools/make_prior_corpus.py documents: ``<name>/annotations/
+    train_annotations.json`` with ``rgb_path``/``depth_path``/``disp_path``/
+    ``ins_planes_path`` relative to ``root``), PNGs written by the port's own
+    encoder. taskonomy: uint16 depth below its 28000 invalid mark, plane
+    masks; diml_ganet: uint16 disparity only. → bytes written."""
+    rng = np.random.default_rng(seed)
+    nbytes = 0
+    for name, (n, H, W) in PRETRAIN_CORPUS.items():
+        os.makedirs(os.path.join(root, name, "annotations"), exist_ok=True)
+        os.makedirs(os.path.join(root, name, "imgs"), exist_ok=True)
+        annos = []
+        for i in range(n):
+            rgb, depth, planes = corpus_image(rng, H, W)
+            anno = {"rgb_path": f"{name}/imgs/{i}.png"}
+            files = [(anno["rgb_path"], rgb)]
+            if name == "taskonomy":
+                anno["depth_path"] = f"{name}/imgs/{i}_d.png"
+                anno["ins_planes_path"] = f"{name}/imgs/{i}_p.png"
+                files += [(anno["depth_path"],
+                           np.clip(depth / depth.max() * 20000, 1, 27999).astype(np.uint16)),
+                          (anno["ins_planes_path"], planes)]
+            else:
+                disp = 1.0 / depth
+                anno["disp_path"] = f"{name}/imgs/{i}_disp.png"
+                files.append((anno["disp_path"], (disp / disp.max() * 60000).astype(np.uint16)))
+            for rel, img in files:
+                path = os.path.join(root, rel)
+                (image_io.write_png16 if img.dtype == np.uint16 else image_io.write_png8)(path, img)
+                nbytes += os.path.getsize(path)
+            annos.append(anno)
+        with open(os.path.join(root, name, "annotations", "train_annotations.json"), "w") as f:
+            json.dump(annos, f)
+    return {"bytes": nbytes}
+
+
+def pretrain_argv(root: str, seed: int) -> list:
+    return ["--dataset", "multi", "--dataroot", root, "--dataset_list", *PRETRAIN_CORPUS,
+            "--seed_num", str(seed), "--d_latent", str(PRIOR_D_LATENT)]
+
+
+def prior_dp_worker(case_path: str, out_dir: str) -> int:
+    """One rank of the prior's 2-rank check (torchrun): its block of the
+    case's global batch through ``train_step(ranks=...)``, then
+    PRETRAIN_DP_TIMED more steps timed. Rank 0 saves the state after the
+    first step; every rank its losses and step times."""
+    from scade_tpu_torch.parallel import dist
+
+    ranks, device, backend = dist.init_from_env("cuda")
+    try:
+        case = torch.load(case_path, weights_only=False)
+        cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+        m = prior_model.DepthModelCIMLE(cfg, "v2")
+        m.load_state_dict(case["state"], strict=True)
+        m.to(device)
+        tc = prior_train.PriorTrainConfig()
+        opt = prior_train.PriorOptimizer(m, tc)
+        mine = ranks.block(case["batch"]["rgb"].shape[0])
+        batch = prior_train.rows_of({k: v.to(device) for k, v in case["batch"].items()}, mine)
+        draws = prior_train.draws_of({k: tuple(t.to(device) for t in v)
+                                      for k, v in case["draws"].items()}, mine)
+        shifts = {k: v.to(device) for k, v in case["shifts"].items()}
+        z = case["z"].to(device)[mine]
+        with prior_dump.matmul_precision("highest"):
+            total, losses = prior_train.train_step(m, opt, shifts, batch, z, draws, tc, ranks)
+            rec = dict(rank=ranks.rank, backend=backend, total=float(total),
+                       losses={k: float(v) for k, v in losses.items()})
+            if ranks.primary:
+                torch.save({k: v.detach().cpu() for k, v in m.state_dict().items()},
+                           os.path.join(out_dir, "state.pt"))
+            step_ms = []
+            for _ in range(PRETRAIN_DP_TIMED):
+                dist.barrier()
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                prior_train.train_step(m, opt, shifts, batch, z, draws, tc, ranks)
+                torch.cuda.synchronize(device)
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        rec.update(step_ms=step_ms, peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        with open(os.path.join(out_dir, f"rank{ranks.rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy()
+    return 0
+
+
+def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
+                   shifts: dict) -> dict:
+    """The prior's data-parallel step on the card: the first step at global
+    B=4 over ``world`` ranks (torchrun, this script as each rank's program:
+    ``--prior-dp-worker``; NCCL with a card a rank, else gloo on the one
+    card) against the 1-rank step and the same step in f64, from ``state``
+    with the same z and draws (drawn once on the host). Prints the line
+    ``prior_dp``."""
+    out_dir = os.path.join(tmp, f"prior_dp{world}")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    B = batch["rgb"].shape[0]
+    z = torch.randn((B, PRIOR_D_LATENT), generator=gen)
+    draws = prior_losses.draw_criterion(gen, batch, prior_losses.DEFAULT_LOSS_MODE)
+    case_path = os.path.join(out_dir, "case.pt")
+    torch.save(dict(state=state, batch=batch, z=z, draws=draws, shifts=shifts), case_path)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+           "--master_addr", "127.0.0.1", "--master_port", str(free_port()), SCRIPT,
+           "--prior-dp-worker", case_path, out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"prior_dp: torchrun exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(world)]
+    two = torch.load(os.path.join(out_dir, "state.pt"))
+    one = prior_step_on("cuda", state, shifts, batch, z, draws)
+    f64 = prior_step_on("cuda", state, shifts, batch, z, draws, torch.float64)
+    total = abs(one["losses"]["total_loss"])
+    loss_err = max(abs(recs[0]["losses"][k] - v) for k, v in one["losses"].items()) / total
+
+    def update(st):
+        return torch.cat([(st[n].double() - state[n].double()).flatten() for n in one["params"]])
+
+    u1, u2, u64 = update(one["state"]), update(two), update(f64["state"])
+    dist_f64 = {name: float((u - u64).norm()) for name, u in (("one_rank", u1), ("ranks", u2))}
+    bn_err = max((two[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
+                 for k, v in one["state"].items() if k.endswith(("running_mean", "running_var")))
+    checks = {"ranks report one loss": all(r["losses"] == recs[0]["losses"] for r in recs),
+              "losses = 1 rank's": loss_err <= PRETRAIN_DP_LOSS_REL,
+              "BN statistics = 1 rank's": bn_err <= PRETRAIN_DP_BN_REL,
+              "update within the f64 witness": dist_f64["ranks"]
+              <= PRIOR_STEP_WITNESS_RATIO * dist_f64["one_rank"]}
+    line("prior_dp", world=world, backend=recs[0]["backend"], global_batch=B, crop=448,
+         ranks_command_s=ranks_s, ms_per_step_per_rank={r["rank"]: r["step_ms"] for r in recs},
+         peak_gb_per_rank={r["rank"]: r["peak_gb"] for r in recs},
+         losses_ranks=recs[0]["losses"], losses_one_rank=one["losses"],
+         losses_f64=f64["losses"], loss_max_err_rel_to_total=loss_err, bn_max_rel_err=bn_err,
+         update_l2_f64=float(u64.norm()), update_distance_from_f64=dist_f64,
+         ranks_vs_one_rank_update_max=float((u2 - u1).abs().max()),
+         tol=dict(loss_rel_to_total=PRETRAIN_DP_LOSS_REL, bn_rel=PRETRAIN_DP_BN_REL,
+                  update_witness_ratio=PRIOR_STEP_WITNESS_RATIO), checks=checks)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"prior_dp: failed {bad}")
+    return checks
+
+
+def pretrain_batch(root: str, seed: int) -> dict:
+    """The first global batch of 4 of the trainer's order, as the CLI reads
+    it, on the host."""
+    args = prior_train.parse_args(pretrain_argv(root, seed) + PRETRAIN_ARGS + ["--device", "cpu"])
+    _, batches, _, _ = prior_train._multi_input(args, "cpu")
+    return next(batches(4))
+
+
+def baseline_check(batch: dict, seed: int) -> dict:
+    """``DepthModelBaseline`` (ResNeXt101-32x8d + AuxiNetV2) at the 448 crop
+    from seeded weights: the card's f32 forward (TF32 off) against the
+    CPU's on one image, both outputs; then a train-mode forward and backward
+    of ``criterion`` + ``auxi_criterion`` at B=4, its ms and peak GB."""
+    cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+    m = prior_model.init_weights_(prior_model.DepthModelBaseline(cfg, "v2"),
+                                  torch.Generator().manual_seed(seed))
+    x = batch["rgb"][:1]
+    m.eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = m(x)
+    cpu_s = time.perf_counter() - t0
+    m.cuda()
+    dev = {k: v.cuda() for k, v in batch.items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = prior_losses.draw_criterion(gen, dev, AUXI_LOSS_MODE)
+    auxi_draws = prior_losses.draw_auxi_criterion(gen, dev, AUXI_LOSS_MODE)
+    with prior_dump.matmul_precision("highest"):
+        with torch.no_grad():
+            card = m(x.cuda())
+        errs = {name: float((c.cpu() - r).abs().max() / r.abs().max())
+                for name, c, r in zip(("depth", "auxi"), card, cpu)}
+        m.train()
+
+        def step():
+            depth, auxi = m(dev["rgb"])
+            _, total = prior_losses.criterion(depth, dev, AUXI_LOSS_MODE, draws)
+            _, auxi_total = prior_losses.auxi_criterion(auxi, dev, AUXI_LOSS_MODE, auxi_draws)
+            (total + auxi_total).mean().backward()
+            return total, auxi_total
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        total, auxi_total = step()
+        ms = cuda_ms(step, reps=3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = bool(torch.isfinite(total).all() and torch.isfinite(auxi_total).all()
+                  and all(torch.isfinite(p.grad).all() for p in m.parameters()))
+    total, auxi_total = total.detach(), auxi_total.detach()
+    return dict(params=sum(p.numel() for p in m.parameters()), f32_vs_cpu_rel=errs, cpu_s=cpu_s,
+                train_fwd_bwd_ms_b4=ms, peak_gb=peak_gb, finite=finite,
+                loss_b4=float(total.mean()), auxi_loss_b4=float(auxi_total.mean()))
+
+
+def phase_prior_pretrain(tmp: str, seed: int) -> dict:
+    """The depth prior's pretraining path, as a user runs it: a two-source
+    corpus (PRETRAIN_CORPUS) written to ``tmp``, then
+    ``python -m scade_tpu_torch.prior.train --dataset multi`` for one epoch
+    of the full-width ResNeXt101-32x8d v2 model (d_latent 32, 448 crop, the
+    five-loss default, fresh seeded weights, f32 without TF32): the AdaIn
+    init over 8 examples, a recache of 20 z for each of the 16 examples of
+    the sampler's order, 4 SGD steps at batch 4. It must write finite AdaIn
+    statistics, cache a finite (16, 32) z, log 4 finite steps and a
+    checkpoint, and visit the sources round-robin. Times: the command, each
+    step, the recache per image, the host's read per example (decode and
+    resize, ``MultiDataset.load_test_data_v2``) against a step; peak GB.
+    Then, from the checkpoint it wrote, the 2-rank check (``phase_prior_dp``)
+    and the baseline model (``baseline_check``)."""
+    log = io.StringIO()
+    t_phase = time.perf_counter()
+    try:
+        from scade_tpu_torch.prior import multi_data
+
+        root = os.path.join(tmp, "corpus")
+        t0 = time.perf_counter()
+        corpus = write_corpus(root, seed)
+        corpus_s = time.perf_counter() - t0
+        log_dir, jsonl = os.path.join(tmp, "pretrain_log"), os.path.join(tmp, "pretrain.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        names = ("compute_adain_stats", "recache_z", "train_step")
+        with TimeProbe(prior_train, names, sync=True) as probe, \
+                TimeProbe(multi_data.MultiDataset, ("load_test_data_v2",)) as reads, \
+                contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            out = prior_train.main([*pretrain_argv(root, seed), "--log_dir", log_dir,
+                                    *PRETRAIN_ARGS, "--precision", "highest",
+                                    "--loss_jsonl", jsonl])
+            command_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n = 2 * int(max(v[0] for v in PRETRAIN_CORPUS.values()) * PRETRAIN_SAMPLE_RATIO)
+        steps = n // 4
+        mv = np.load(os.path.join(log_dir, "mean_var_adain.npy"), allow_pickle=True).item()
+        recs = [json.loads(x) for x in open(jsonl).read().splitlines()]
+        order = out["order"]["source"]
+        counts = {name: order.count(name) for name in PRETRAIN_CORPUS}
+        ckpt = os.path.join(log_dir, "epoch0_step0.pth")
+        shifts = {k: v.cpu() for k, v in out["shifts"].items()}
+        checks = {"AdaIn statistics finite": len(mv) == 8 and all(np.isfinite(v).all()
+                                                                 for v in mv.values()),
+                  f"cached z ({n}, 32), finite": out["z"].shape == (n, PRIOR_D_LATENT)
+                  and bool(np.isfinite(out["z"]).all()),
+                  f"{steps} finite steps": len(recs) == steps and all(
+                      math.isfinite(v) for r in recs for v in r.values()),
+                  "checkpoint written": os.path.exists(ckpt),
+                  "round-robin order": order[0::2] == ["taskonomy"] * (n // 2)
+                  and order[1::2] == ["diml_ganet"] * (n // 2)}
+        read_s = reads.s["load_test_data_v2"]
+        step_ms = [1e3 * v for v in probe.s["train_step"]]
+        del out
+        torch.cuda.empty_cache()
+
+        batch = pretrain_batch(root, seed)
+        state = torch.load(ckpt)["model_state_dict"]
+        dp = phase_prior_dp(tmp, seed, 2, batch, state, shifts)
+        del state
+        torch.cuda.empty_cache()
+        base = baseline_check(batch, seed)
+        torch.cuda.empty_cache()
+        checks.update({"2-rank step = 1-rank step": all(dp.values()),
+                       "baseline card f32 against CPU f32": max(base["f32_vs_cpu_rel"].values())
+                       <= PRIOR_F32_TOL,
+                       "baseline losses and grads finite": base["finite"]})
+        line("prior_pretrain", backbone="resnext101_32x8d", version="v2",
+             d_latent=PRIOR_D_LATENT, crop=448, corpus={k: list(v) for k, v in
+                                                        PRETRAIN_CORPUS.items()},
+             corpus_bytes=corpus["bytes"], corpus_write_s=corpus_s, examples=n,
+             argv=PRETRAIN_ARGS, command_s=command_s, cli_step_ms=step_ms,
+             ms_per_step_median=statistics.median(step_ms),
+             adain_s_per_image=probe.s["compute_adain_stats"][0] / 8,
+             recache_s_per_image=probe.s["recache_z"][0] / n,
+             host_read_s_per_example=dict(median=statistics.median(read_s), max=max(read_s),
+                                          n=len(read_s)),
+             host_read_s_per_step_b4=4 * statistics.median(read_s), peak_gb=peak_gb,
+             first_batches_sources=[order[i:i + 4] for i in (0, 4)], sources_visited=counts,
+             losses_first_step=recs[0], baseline=base,
+             phase_s=time.perf_counter() - t_phase, checks=checks)
+        bad = [name for name, ok in checks.items() if not ok]
+        if bad:
+            raise RuntimeError(f"prior_pretrain: failed {bad}")
+        return checks
+    except Exception:
+        sys.stderr.write(log.getvalue()[-20000:])
+        raise
+
+
 def phase_prior_paths(seed: int) -> None:
-    """prior_train, then prior on what it wrote, in one temporary scene."""
+    """prior_train, then prior on what it wrote, in one temporary scene;
+    then prior_pretrain in another."""
     tmp = tempfile.mkdtemp(prefix="scade_prior_")
     try:
         trained = phase_prior_train(tmp, seed)
@@ -1847,11 +2198,19 @@ def phase_prior_paths(seed: int) -> None:
         phase_prior(tmp, seed, trained)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="scade_pretrain_")
+    try:
+        phase_prior_pretrain(tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of the dp phase (torchrun)
         return dp_worker(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--prior-dp-worker"]:  # one rank of the prior_dp check (torchrun)
+        return prior_dp_worker(sys.argv[2], sys.argv[3])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=20)
@@ -1859,13 +2218,16 @@ def main() -> int:
                         help="run the device and k1 phases only and print no result line: "
                              "for comparing K1 builds of two trees on one card")
     parser.add_argument("--prior-only", action="store_true",
-                        help="run the device phase, then the prior_train and prior phases, and "
-                             "print no result line: for the prior's paths alone")
+                        help="run the device phase, then the prior_train, prior and "
+                             "prior_pretrain phases, and print no result line: for the prior's "
+                             "paths alone")
     parser.add_argument("--dp-only", type=int, default=0, metavar="N",
                         help="run the device phase, then the dp phase on N ranks on a "
-                             "freshly written scene, and print no result line: for data "
-                             "parallelism over N cards (NCCL)")
+                             "freshly written scene and the prior's step over N ranks, and print "
+                             "no result line: for data parallelism over N cards (NCCL)")
     args = parser.parse_args()
+    if args.dp_only and 4 % args.dp_only:
+        parser.error(f"--dp-only {args.dp_only}: N must divide the prior's global batch of 4")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
@@ -1879,6 +2241,15 @@ def main() -> int:
         try:
             write_scene(tmp, args.seed)
             phase_dp(tmp, args.seed, args.dp_only)
+            # the prior's step over the N cards, from fresh seeded weights
+            write_corpus(os.path.join(tmp, "corpus"), args.seed)
+            cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
+            model = prior_model.init_weights_(prior_model.DepthModelCIMLE(cfg, "v2"),
+                                              torch.Generator().manual_seed(args.seed),
+                                              random_stats=False)
+            phase_prior_dp(tmp, args.seed, args.dp_only,
+                           pretrain_batch(os.path.join(tmp, "corpus"), args.seed),
+                           model.state_dict(), prior_model.zero_shifts_for(model))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return 0

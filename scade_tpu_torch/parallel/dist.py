@@ -14,7 +14,12 @@ what XLA reduced:
 - ``is_joint``'s (K, P) mean over rays is averaged over ranks with a
   differentiable collective before its min over K (``Ranks.mean``);
 - eval renders split an image's rays into contiguous blocks and reassemble
-  the maps on every rank (``Ranks.gather_rows``).
+  the maps on every rank (``Ranks.gather_rows``);
+- the prior's data-parallel step (``prior/train.py --data_parallel``) splits
+  the image batch the same way and sums the grads (``Ranks.sum_``); inside
+  ``global_batch`` the step's two batch-wide sums, the BatchNorm statistics
+  (``prior/blocks.py``, differentiable ``Ranks.all_sum``) and the plane
+  loss's count of groups (``prior/losses.py``), run over every rank's images.
 
 Without a process group a run uses one device, and nothing here is called.
 Importing this module initialises nothing.
@@ -26,6 +31,7 @@ import contextlib
 import dataclasses
 import datetime
 import os
+import socket
 from typing import List, Optional, Tuple
 
 import torch
@@ -60,13 +66,24 @@ class Ranks:
             t.copy_(flat[off: off + t.numel()].view_as(t))
             off += t.numel()
 
-    def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean of ``x`` over the ranks, differentiable: the backward
-        sums the ranks' output grads, so a loss scaled by 1/world on every
-        rank and grads summed over ranks give the grad of the global loss."""
-        from torch.distributed.nn.functional import all_reduce
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, differentiable: the backward sums
+        the ranks' output grads, so every rank's input gets the grad of the
+        sum of all ranks' losses."""
+        return _AllSum.apply(x)
 
-        return all_reduce(x) / self.world
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the ranks, differentiable (``all_sum``): a
+        loss scaled by 1/world on every rank and grads summed over ranks
+        give the grad of the global loss."""
+        return self.all_sum(x) / self.world
+
+    def hosts(self) -> int:
+        """How many hosts the ranks run on: their distinct host names,
+        gathered over the group (either launcher)."""
+        names = [None] * self.world
+        dist.all_gather_object(names, socket.gethostname())
+        return len(set(names))
 
     def gather_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
         """Every rank's ``x`` (its block of ``per`` rows, ``per`` equal on all
@@ -78,6 +95,50 @@ class Ranks:
         full[self.rank * per: (self.rank + 1) * per] = x
         dist.all_reduce(full)
         return full[:n]
+
+
+# The ranks whose blocks make one global batch: set by ``global_batch`` for
+# the length of a data-parallel forward and criterion.
+_BATCH_RANKS: List[Optional[Ranks]] = [None]
+
+
+@contextlib.contextmanager
+def global_batch(ranks: Optional[Ranks]):
+    """Inside the block, whatever reduces over a whole batch reduces over
+    every rank's block of it (each rank holds an equal block), as XLA's
+    psums do in the JAX package's data-parallel step: the prior's train-mode
+    BatchNorm statistics and its plane loss's normalizer. ``None``: this
+    process's batch alone."""
+    prev = _BATCH_RANKS[0]
+    _BATCH_RANKS[0] = ranks
+    try:
+        yield
+    finally:
+        _BATCH_RANKS[0] = prev
+
+
+def batch_ranks() -> Optional[Ranks]:
+    """The ranks of the current ``global_batch``, or None."""
+    return _BATCH_RANKS[0]
+
+
+class _AllSum(torch.autograd.Function):
+    """all_reduce (sum) over the default group, forward and backward. It keeps
+    no reference to the group, so a graph that outlives the run does not
+    keep the group alive past ``destroy`` (``torch.distributed.nn``'s
+    deprecated ``all_reduce`` stores it on the graph)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g
 
 
 def current() -> Optional[Ranks]:
@@ -109,6 +170,21 @@ def primary_first():
         barrier()
 
 
+def launched() -> bool:
+    """Whether this process was started as one of several ranks (torchrun's
+    ``RANK`` or the JAX CLI's ``SCADE_COORDINATOR`` is set)."""
+    return "RANK" in os.environ or "SCADE_COORDINATOR" in os.environ
+
+
+def ranks_per_host(world: int) -> int:
+    """How many of the ``world`` ranks run on this host: torchrun's
+    ``LOCAL_WORLD_SIZE``; ranks started through ``SCADE_COORDINATOR`` count
+    as one host's."""
+    if "RANK" in os.environ:
+        return int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return world
+
+
 def init_from_env(device: str) -> Tuple[Ranks, str, str]:
     """Starts the process group of ``--multihost``. Rank and world come from
     torchrun's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/
@@ -121,17 +197,17 @@ def init_from_env(device: str) -> Tuple[Ranks, str, str]:
     env = os.environ
     if "SCADE_COORDINATOR" in env and "RANK" not in env:
         rank, world = int(env["SCADE_PROCESS_ID"]), int(env["SCADE_NUM_PROCESSES"])
-        local_rank, local_world = rank, world
+        local_rank = rank
         init_method = f"tcp://{env['SCADE_COORDINATOR']}"
     elif "RANK" in env:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
         local_rank = int(env.get("LOCAL_RANK", rank))
-        local_world = int(env.get("LOCAL_WORLD_SIZE", world))
         init_method = "env://"
     else:
         raise RuntimeError("--multihost: set torchrun's RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT "
                            "(torchrun does) or SCADE_COORDINATOR/SCADE_NUM_PROCESSES/"
                            "SCADE_PROCESS_ID")
+    local_world = ranks_per_host(world)
     backend = "gloo"
     if device == "cuda":
         cards = torch.cuda.device_count()

@@ -7,7 +7,10 @@ FFM :804, AO :851; Resnext_torch.py Bottleneck :84-130, AdaIn_v2
 ``conv.{0,3,6}``, ``conv_branch.{1,2,4}``, ``adapt_conv.{0,1,3}``,
 ``downsample.{0,1}``), so a reference checkpoint loads into them as it is.
 Every BatchNorm is ``BatchNorm2d`` below: eps 1e-5, and in train mode the
-JAX package's (flax's) law for the running statistics.
+JAX package's (flax's) law for the running statistics; inside
+``parallel.dist.global_batch(ranks)`` its train-mode statistics are the
+global batch's, over every rank's images. The baseline model's auxi branch
+adds ``AuxiBlock`` (network_auxi.py:58-75) and ``ASPP`` (:897-946).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scade_tpu_torch.parallel.dist import batch_ranks
 
 
 def resize_align_corners(x: torch.Tensor, size) -> torch.Tensor:
@@ -28,31 +33,57 @@ def upsample_align_corners(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-5, the same state_dict) whose train-mode
-    forward follows flax's ``nn.BatchNorm(momentum=0.9)``: it normalizes with
-    the batch's biased variance, as torch does, but also moves
+    forward follows flax's ``nn.BatchNorm(momentum=momentum)``: it normalizes
+    with the batch's biased variance, as torch does, but also moves
     ``running_var`` towards that biased variance, where torch would use the
-    unbiased one. The statistics are taken in f32 at least, whatever the
-    input's dtype (flax's ``force_float32_reductions``). Eval mode is torch's
-    own."""
+    unbiased one. ``momentum`` is flax's (the share of the old running
+    value: 0.9 everywhere but ``AuxiBlock``'s 0.5); torch's is one minus it.
+    The statistics are taken in f32 at least, whatever the input's dtype
+    (flax's ``force_float32_reductions``). Eval mode is torch's own.
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    Inside ``dist.global_batch(ranks)`` the train-mode mean and biased variance
+    are the global batch's, in two passes over differentiable all-reduces
+    (the sum, then the sum of squared deviations from the global mean: one
+    E[x²] − E[x]² pass would cancel digits in f32), so a rank's forward and
+    backward are the single-process step's on the global batch and the
+    running statistics move identically on every rank."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9):
+        super().__init__(num_features, eps=1e-5, momentum=1.0 - momentum)
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        ranks = batch_ranks()
+        if ranks is not None:
+            return self._global_forward(x, ranks)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+            self._update(mean, var)
         return y
 
+    def _update(self, mean, var):
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
 
-def _bn(channels: int) -> BatchNorm2d:
-    return BatchNorm2d(channels)
+    def _global_forward(self, x, ranks):
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = xs.numel() // xs.shape[1] * ranks.world
+        mean = ranks.all_sum(xs.sum((0, 2, 3))) / n
+        dev = xs - mean[None, :, None, None]
+        var = ranks.all_sum((dev * dev).sum((0, 2, 3))) / n
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self._update(mean, var)
+        return y.to(x.dtype)
+
+
+def _bn(channels: int, momentum: float = 0.9) -> BatchNorm2d:
+    return BatchNorm2d(channels, momentum)
 
 
 def _conv3x3(cin: int, cout: int, bias: bool = True, stride: int = 1, groups: int = 1):
@@ -202,3 +233,41 @@ class AO(nn.Module):
 
     def forward(self, x):
         return upsample_align_corners(self.adapt_conv(x), 2)
+
+
+class AuxiBlock(nn.Module):
+    """The auxi branch's fusion block (network_auxi.py:58-75): ``top``
+    resized to ``lateral``'s size, [lateral ⊕ top], then a 1×1 conv
+    (no bias)-BN-ReLU and a 3×3 conv-BN-ReLU, both BatchNorms of momentum
+    0.5."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(dim_in, dim_out, 1, bias=False)
+        self.bn1 = _bn(dim_out, 0.5)
+        self.conv2 = _conv3x3(dim_out, dim_out)
+        self.bn2 = _bn(dim_out, 0.5)
+
+    def forward(self, top, lateral):
+        if top.shape[2:] != lateral.shape[2:]:
+            top = resize_align_corners(top, lateral.shape[2:])
+        out = F.relu(self.bn1(self.conv1(torch.cat([lateral, top], 1))))
+        return F.relu(self.bn2(self.conv2(out)))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling (network_auxi.py:897-946): four
+    parallel convs (1×1 at rate 1, 3×3 dilated at rates 6, 12, 18), each
+    conv-ReLU-BN, concatenated to 4·``planes`` channels."""
+
+    def __init__(self, inchannels: int, planes: int = 128, rates=(1, 6, 12, 18)):
+        super().__init__()
+        self.rates = tuple(rates)
+        for i, rate in enumerate(self.rates):
+            k, pad = (1, 0) if rate == 1 else (3, rate)
+            self.add_module(f"atrous_{i}", nn.Sequential(
+                nn.Conv2d(inchannels, planes, k, padding=pad, dilation=rate), nn.ReLU(),
+                _bn(planes)))
+
+    def forward(self, x):
+        return torch.cat([getattr(self, f"atrous_{i}")(x) for i in range(len(self.rates))], 1)

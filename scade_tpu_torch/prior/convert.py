@@ -5,7 +5,8 @@ The name map is the port's own copy of ``scade_tpu/prior/translate.py``'s
 (reference names: Resnext_torch.py ResNet_cIMLE, network_auxi.py
 Decoder/FTB/FFM/AO/AdaIn, Decoder_cIMLE), for the encoder- and decoder-side
 models this package builds.
-Conventions: flax conv kernel (kH, kW, I/g, O) is torch (O, I/g, kH, kW);
+The baseline model's auxi branch maps as ``translate.py``'s ``auxi`` branch
+does. Conventions: flax conv kernel (kH, kW, I/g, O) is torch (O, I/g, kH, kW);
 flax Dense (I, O) is Linear (O, I); flax BatchNorm scale/bias and its
 batch_stats mean/var are weight/bias/running_mean/running_var.
 
@@ -82,11 +83,15 @@ def _ao_pairs(torch_base: str, our_base: str):
 
 
 def name_map(cfg: PriorConfig, version: str = "v2", adain: bool = True,
-             dec_version: Optional[str] = None) -> List[Tuple[str, str, str]]:
+             dec_version: Optional[str] = None, auxi: bool = False
+             ) -> List[Tuple[str, str, str]]:
     """(torch name, flax path, kind) for every layer of DepthModelCIMLE:
     ``version`` "v2" (AdaIn) or "v3" (AdaIn_v2) encoder taps; ``adain=False``
     the plain backbone. ``dec_version`` "v2"–"v6": DepthModelCIMLEDec, the
-    plain backbone and Decoder_cIMLE's taps (translate.py:106-183)."""
+    plain backbone and Decoder_cIMLE's taps (translate.py:106-183).
+    ``auxi``: the auxi branch's 5 AuxiBlocks and AO (``auxi_modules.*``,
+    translate.py:166-180), which DepthModelBaseline adds to the plain
+    backbone and decoder."""
     if dec_version is not None:
         adain = False
     pairs = [("encoder_modules.conv1", "encoder.conv1", "conv"),
@@ -114,6 +119,12 @@ def name_map(cfg: PriorConfig, version: str = "v2", adain: bool = True,
         pairs += _ftb_pairs(f"decoder_modules.{name}.ftb1", f"decoder.{name}.FTB_0")
         pairs += _ftb_pairs(f"decoder_modules.{name}.ftb2", f"decoder.{name}.FTB_1")
     pairs += _ao_pairs("decoder_modules.outconv", "decoder.outconv")
+    if auxi:
+        for bi in range(1, 6):
+            tb, ob = f"auxi_modules.auxi_block{bi}", f"auxi.auxi_block{bi}"
+            pairs += [(f"{tb}.conv{i + 1}", f"{ob}.Conv_{i}", "conv") for i in range(2)]
+            pairs += [(f"{tb}.bn{i + 1}", f"{ob}.BatchNorm_{i}", "bn") for i in range(2)]
+        pairs += _ao_pairs("auxi_modules.out_conv", "auxi.out_conv")
     return pairs
 
 
@@ -159,6 +170,14 @@ def state_dict_from_flax(params: dict, batch_stats: dict, cfg: PriorConfig,
     ``build_prior_model(cfg, version, cimle_version)`` loads strictly."""
     dec = version if cimle_version == "dec" else None
     return tree_to_state_dict(params, batch_stats, name_map(cfg, version, dec_version=dec))
+
+
+def baseline_state_dict_from_flax(params: dict, batch_stats: dict, cfg: PriorConfig
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``DepthModelBaseline`` variables (numpy trees) → a
+    state_dict that ``model.DepthModelBaseline(cfg, v)`` loads strictly
+    (either auxi width: the names are the same)."""
+    return tree_to_state_dict(params, batch_stats, name_map(cfg, adain=False, auxi=True))
 
 
 def load_prior_checkpoint(path: str) -> Dict[str, torch.Tensor]:

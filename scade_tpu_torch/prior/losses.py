@@ -33,6 +33,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from scade_tpu_torch.parallel.dist import batch_ranks
+
 DEFAULT_LOSS_MODE = ("_ranking-edge_pairwise-normal-regress-edge_msgil-normal_"
                      "meanstd-tanh_pairwise-normal-regress-plane_")
 
@@ -365,7 +367,8 @@ def pwn_planes_loss(pred, focal_length, draws, sample_groups: int = 5000, delta_
     normalized image coordinates, and planes with under 0.6·3·sample_groups
     pixels, are dropped; a plane with under 2 groups left adds nothing, not
     even to the denominator. The loss is each plane's sum of 1 − cos to its
-    mean normal, per image, over all images' count of groups. → (B,)."""
+    mean normal, per image, over all images' count of groups (every rank's
+    images inside ``parallel.dist.global_batch``). → (B,)."""
     idx, n_valid = draws
     B, K, n = idx.shape
     _, _, H, W = pred.shape
@@ -415,8 +418,11 @@ def pwn_planes_loss(pred, focal_length, draws, sample_groups: int = 5000, delta_
                                             + vz * avz[..., None]), 0.0)
     keep = group_ok.sum(-1) >= 2
     losses = torch.where(keep, cos_diff.sum(-1), 0.0).sum(1)
-    counts = torch.where(keep, w.sum(-1), 0.0).sum(1)
-    return losses / (counts.sum() + 1e-8)
+    count = torch.where(keep, w.sum(-1), 0.0).sum()  # from the draws only: no gradient
+    ranks = batch_ranks()
+    if ranks is not None:
+        ranks.sum_([count])
+    return losses / (count + 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -508,3 +514,50 @@ def criterion(pred_depth, batch: dict, loss_mode: str, draws: Optional[dict] = N
     loss["total_loss"] = (sum(loss.values()) if loss
                           else torch.zeros((), device=pred_depth.device))
     return loss, total
+
+
+# ---------------------------------------------------------------------------
+# the baseline model's auxi (disparity) branch
+# ---------------------------------------------------------------------------
+
+
+def draw_auxi_criterion(gen: torch.Generator, batch: dict, loss_mode: str) -> dict:
+    """The draws ``auxi_criterion`` needs: the ranking pairs on the
+    disparity, ``ranking`` (A, B), where ``loss_mode`` holds
+    ``_ranking-edge-auxi_`` and the batch a ``disp``."""
+    if "disp" in batch and "_ranking-edge-auxi_" in loss_mode.lower():
+        return {"ranking": draw_ranking_edge(gen, batch["disp"], batch["rgb"])}
+    return {}
+
+
+def auxi_criterion(pred_disp, batch: dict, loss_mode: str, draws: Optional[dict] = None,
+                   generator: Optional[torch.Generator] = None, auxi_weight: float = 0.5):
+    """ModelLoss.auxi_loss for the disparity branch
+    (multi_depth_model_auxiv2.py:229-248): the ``*-auxi_`` losses of
+    ``loss_mode`` on the prediction against ``batch["disp"]`` (ranking-edge
+    on ``draws``, or fresh ones from ``generator``; MSGIL × 0.5; ILNR), the
+    totals scaled by ``auxi_weight`` (LOSS_AUXI_WEIGHT, config.py:99). A
+    batch without ``disp`` gives zeros. Returns (the loss dict, the (B,)
+    per-image totals)."""
+    B = pred_disp.shape[0]
+    total = torch.zeros(B, device=pred_disp.device)
+    if "disp" not in batch:
+        return {"total_loss": torch.zeros((), device=pred_disp.device)}, total
+    gt = batch["disp"]
+    lm = loss_mode.lower()
+    if draws is None and "_ranking-edge-auxi_" in lm:
+        draws = draw_auxi_criterion(generator, batch, loss_mode)
+    terms = []
+    if "_ranking-edge-auxi_" in lm:
+        terms.append(("ranking-edge_auxiloss", ranking_edge_loss(pred_disp, gt, draws["ranking"])))
+    if "_msgil-normal-auxi_" in lm:
+        terms.append(("msg_normal_auxiloss", msgil_loss(pred_disp, gt) * 0.5))
+    if "_meanstd-tanh-auxi_" in lm:
+        terms.append(("meanstd-tanh_auxiloss", ilnr_loss(pred_disp, gt)))
+    loss = {}
+    for name, cur in terms:
+        loss[name] = cur.sum()
+        total = total + cur
+    loss["total_loss"] = (sum(loss.values()) * auxi_weight if loss
+                          else torch.zeros((), device=pred_disp.device))
+    return loss, total * auxi_weight

@@ -33,6 +33,7 @@ from scade_tpu_torch.prior.blocks import (
     FTB,
     AdaIn,
     AdaInV2,
+    AuxiBlock,
     BasicBlock,
     BatchNorm2d,
     Bottleneck,
@@ -176,7 +177,9 @@ class ResNeXtCIMLE(nn.Module):
 
 
 class Decoder(nn.Module):
-    """LeReS top-down decoder: FTB on the 1/32 map, three FFMs, AO."""
+    """LeReS top-down decoder: FTB on the 1/32 map, three FFMs, AO. With
+    ``return_auxi`` also the 6 intermediate maps the auxi branch reads
+    (network_auxi.py:216-220)."""
 
     def __init__(self, cfg: PriorConfig):
         super().__init__()
@@ -189,11 +192,17 @@ class Decoder(nn.Module):
         self.ffm0 = FFM(inch[0], mid[0], mid[0])
         self.outconv = AO(mid[0])
 
-    def forward(self, features):
-        x_16 = upsample_align_corners(self.conv1(self.conv(features[3])), 2)
+    def forward(self, features, return_auxi: bool = False):
+        x_32x = self.conv(features[3])
+        x_32 = self.conv1(x_32x)
+        x_16 = upsample_align_corners(x_32, 2)
         x_8 = self.ffm2(features[2], x_16)
         x_4 = self.ffm1(features[1], x_8)
-        return self.outconv(self.ffm0(features[0], x_4))
+        x_2 = self.ffm0(features[0], x_4)
+        out = self.outconv(x_2)
+        if return_auxi:
+            return out, [x_32x, x_32, x_16, x_8, x_4, x_2]
+        return out
 
 
 # Decoder-side cIMLE: how many of the 4 taps each version styles.
@@ -268,6 +277,56 @@ class DepthModelCIMLEDec(nn.Module):
 
     def forward(self, x, z, shifts, return_adain: bool = False):
         return self.decoder_modules(self.encoder_modules(x), z, shifts, x, return_adain)
+
+
+class AuxiNetV2(nn.Module):
+    """The auxi disparity branch over the decoder's 6 intermediate maps
+    (network_auxi.py:77-124): five ``AuxiBlock``s of ``width`` channels,
+    each fusing the running map into the next lateral, then AO.
+    ``AuxiNetV1`` (network_auxi.py:125-172) is the same at width 256."""
+
+    width = 128
+
+    def __init__(self, cfg: PriorConfig):
+        super().__init__()
+        mid = list(cfg.lateral_out[::-1])  # the decoder's [256, 256, 256, 512]
+        # channels of x_32x, x_32, x_16, x_8, x_4, x_2
+        dims = [mid[3], mid[2], mid[2], mid[2], mid[1], mid[0]]
+        self.auxi_block1 = AuxiBlock(dims[0] + dims[1], self.width)
+        for i in range(2, 6):
+            self.add_module(f"auxi_block{i}", AuxiBlock(self.width + dims[i], self.width))
+        self.out_conv = AO(self.width)
+
+    def forward(self, auxi_in):
+        out = self.auxi_block1(auxi_in[0], auxi_in[1])
+        for i, lateral in enumerate(auxi_in[2:], start=2):
+            out = getattr(self, f"auxi_block{i}")(out, lateral)
+        return self.out_conv(out)
+
+
+class AuxiNetV1(AuxiNetV2):
+    width = 256
+
+
+class DepthModelBaseline(nn.Module):
+    """The plain (non-cIMLE) LeReS model with the auxi disparity branch
+    (RelDepthModel / DepthModel, multi_depth_model_auxiv2.py:14-52,451-469):
+    the plain backbone of ``cfg``, the decoder, and ``AuxiNetV2`` (width 128,
+    ``auxi_version`` "v2") or ``AuxiNetV1`` (256, "v1") on its intermediate
+    maps. x (B, 3, H, W) → (depth logit, auxi disparity), each (B, 1, H, W)."""
+
+    def __init__(self, cfg: PriorConfig, auxi_version: str = "v2"):
+        super().__init__()
+        if auxi_version not in ("v1", "v2"):
+            raise ValueError(f"auxi_version is v1 or v2, got {auxi_version!r}")
+        self.cfg, self.auxi_version = cfg, auxi_version
+        self.encoder_modules = ResNeXtCIMLE(cfg, use_adain=False)
+        self.decoder_modules = Decoder(cfg)
+        self.auxi_modules = (AuxiNetV1 if auxi_version == "v1" else AuxiNetV2)(cfg)
+
+    def forward(self, x):
+        logit, auxi_in = self.decoder_modules(self.encoder_modules(x), return_auxi=True)
+        return logit, self.auxi_modules(auxi_in)
 
 
 def build_prior_model(cfg: PriorConfig, version: str = "v2", cimle_version: str = "enc"

@@ -18,15 +18,43 @@ variant):
   grad-norm clip at 10 (multi_depth_model_auxiv2.py:385-450); a
   reference-format ``epoch{N}_step0.pth`` every 8th and the last epoch.
 
+The images come from one scene (``--dataset scene``) or, for pretraining,
+from taskonomy-style annotation corpora (``--dataset multi --dataroot
+<root> --dataset_list taskonomy diml_ganet ...``, ``prior/multi_data.py``):
+the sampler interleaves the sources round-robin, and its order is frozen
+from one recache to the next, because the cached z are positional, and
+drawn anew at each recache (tools/train_prior.py:160-212). Across several
+hosts the sampler shards by host, as the JAX tool's one process a host
+does, and a step's batch is each host's share of its shard, in host order.
+
+``--data_parallel`` splits each step's batch over ``torch.distributed``
+ranks started as the NeRF CLI's ``--multihost`` ranks are (torchrun, or
+``SCADE_COORDINATOR``; NCCL, or gloo where a host has more ranks than cards
+or on the CPU); without them it runs as one rank. Each step is the global
+step of the JAX package's ``make_train_step_dp``: every rank collates the
+whole batch and makes all of its draws from the shared generator, keeps its
+contiguous block of images, z and draws, takes the step's two batch-wide
+sums over the global batch (``dist.global_batch``: the BatchNorm statistics
+and the plane loss's count of groups), scales its loss by 1/B of the global
+batch and sums the grads over the ranks before the clip, so every rank
+takes the same SGD step. The AdaIn init and the recache split their images
+over the ranks and gather the results (exact: the others' rows are zeros),
+so every rank holds the same shifts and z; split, they cost a rank 1/world
+of the whole, where the recache alone is worth about as many steps as a
+scene has images. Only rank 0 writes files.
+
 Run it as
 
     python -m scade_tpu_torch.prior.train --scene_dir <scene> --log_dir logs/prior \\
         --epochs 60 [--d_latent 32] [--batchsize 4] [--device cuda]
+    torchrun --nproc_per_node 4 -m scade_tpu_torch.prior.train --data_parallel \\
+        --dataset multi --dataroot <corpora> --dataset_list taskonomy diml_ganet ...
 
 It takes ``tools/train_prior.py``'s flags and runs on the card unless
 ``--device cpu`` is given. Randomness comes from one ``torch.Generator`` on
 the device, seeded with ``--seed_num``: the z draws and the criterion's
-sampled pixels; fresh weights from a CPU generator with the same seed.
+sampled pixels; fresh weights from a CPU generator with the same seed; the
+multi-corpus sampler's order from numpy's ``default_rng(seed_num)``.
 """
 
 from __future__ import annotations
@@ -43,12 +71,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from scade_tpu_torch.parallel import dist
 from scade_tpu_torch.prior import losses as L
 from scade_tpu_torch.prior.data import FinetuneDataset, collate
 from scade_tpu_torch.prior.dump import matmul_precision
 from scade_tpu_torch.prior.model import (
     get_adain_init_act,
-    load_mean_var_adain,
     prior_apply,
     zero_shifts_for,
 )
@@ -147,11 +175,16 @@ class PriorOptimizer:
         for p in self.params:
             p.grad = None
 
-    def step(self) -> None:
+    def step(self, ranks: Optional[dist.Ranks] = None) -> None:
+        """Clip and SGD; with ``ranks`` the grads are first summed over them
+        (one all-reduce), so the clip's norm is the global one."""
         for p in self.params:  # an unused parameter's grad is 0, as in JAX
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in self.params], self.tc.grad_clip)
+        grads = [p.grad for p in self.params]
+        if ranks is not None:
+            ranks.sum_(grads)
+        clip_by_global_norm_(grads, self.tc.grad_clip)
         for group, schedule in zip(self.sgd.param_groups, self.schedules):
             if schedule is not None:
                 group["lr"] = schedule(self.count)
@@ -194,6 +227,38 @@ def repeat_batch(batch: dict, n: int) -> dict:
     return {k: v.repeat_interleave(n, 0) for k, v in batch.items()}
 
 
+def rows_of(batch: dict, rows: slice) -> dict:
+    """The images ``rows`` of a batch."""
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def draws_of(draws: dict, rows: slice) -> dict:
+    """The draws of the images ``rows`` (every draw is per image)."""
+    return {k: tuple(t[rows] for t in v) for k, v in draws.items()}
+
+
+def own_rows(ranks: Optional[dist.Ranks], n: int) -> slice:
+    """The rows of an ``n``-image batch this rank evaluates in the AdaIn
+    init's and the recache's split: its contiguous block where ``n``
+    divides over the ranks, else all of them on rank 0 and none elsewhere."""
+    if ranks is None:
+        return slice(0, n)
+    if n % ranks.world == 0:
+        return ranks.block(n)
+    return slice(0, n) if ranks.primary else slice(0, 0)
+
+
+def collate_multi(items: List[dict]) -> dict:
+    """Examples of ``multi_data.MultiDataset`` → the batch the criterion
+    reads (tools/train_prior.py:185-197): rgb, depth, disp and planes
+    stacked (planes int32), focal_length float32, quality_flg int32."""
+    out = {k: np.stack([it[k] for it in items]) for k in ("rgb", "depth", "disp", "planes")}
+    out["planes"] = out["planes"].astype(np.int32)
+    out["focal_length"] = np.array([it["focal_length"] for it in items], np.float32)
+    out["quality_flg"] = np.array([int(it["quality_flg"]) for it in items], np.int32)
+    return out
+
+
 def z_from(gen: torch.Generator, d_latent: int) -> Callable[[int], torch.Tensor]:
     """(n,) → an (n, d_latent) standard normal draw from ``gen``."""
     return lambda n: torch.randn((n, d_latent), generator=gen, device=gen.device)
@@ -215,40 +280,67 @@ def loss_fn(model: nn.Module, shifts, batch: dict, z: torch.Tensor, draws: dict,
 
 
 def train_step(model: nn.Module, opt: PriorOptimizer, shifts, batch: dict, z: torch.Tensor,
-               draws: dict, tc: PriorTrainConfig):
+               draws: dict, tc: PriorTrainConfig, ranks: Optional[dist.Ranks] = None):
     """One SGD step in train mode (BatchNorm on the batch's statistics, its
     running statistics moved) → (mean total loss, loss dict), detached, on
-    the device."""
+    the device. With ``ranks``, ``batch``, ``z`` and ``draws`` are this
+    rank's block of a global batch ``ranks.world`` times as large, and the
+    step is the global one: BatchNorm over the global batch, the loss the
+    sum of the rank's per-image totals over the global B, grads summed over
+    the ranks; the returned losses are the global batch's on every rank."""
     model.train()
     opt.zero_grad()
-    total, loss_dict, _ = loss_fn(model, shifts, batch, z, draws, tc, train=True)
-    total.backward()
-    opt.step()
-    return total.detach(), {k: v.detach() for k, v in loss_dict.items()}
+    if ranks is None:
+        total, loss_dict, _ = loss_fn(model, shifts, batch, z, draws, tc, train=True)
+        total.backward()
+        opt.step()
+        return total.detach(), {k: v.detach() for k, v in loss_dict.items()}
+    with dist.global_batch(ranks):
+        _, loss_dict, total_raw = loss_fn(model, shifts, batch, z, draws, tc, train=True)
+    n = total_raw.shape[0] * ranks.world
+    (total_raw.sum() / n).backward()
+    opt.step(ranks)
+    keys = list(loss_dict)
+    sums = torch.stack([loss_dict[k].detach() for k in keys] + [total_raw.detach().sum()])
+    ranks.sum_([sums])
+    return sums[-1] / n, dict(zip(keys, sums[:-1]))
 
 
 def compute_adain_stats(model: nn.Module, batches: Iterable[dict], draw_z, mini_batch_size: int = 5,
-                        out_path: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                        out_path: Optional[str] = None, ranks: Optional[dist.Ranks] = None
+                        ) -> Dict[str, torch.Tensor]:
     """AdaIn init (train_single.py:286-392): per image (``batches`` yield
     NCHW batches whose first image is used), ``mini_batch_size`` z from
     ``draw_z(n)``, the 4 tap activations in eval mode with zero shifts, their
     spatial mean and then the mean over the z; over the images the mean and
     the variance (ddof 1; ddof 0 for one image). Written to ``out_path`` as
-    the reference's ``mean_var_adain.npy`` where given. Returns the shifts
-    on the model's device."""
+    the reference's ``mean_var_adain.npy`` where given. With ``ranks``,
+    image i is evaluated on rank i mod world (every rank still draws every
+    image's z) and the per-image means are gathered, so every rank returns
+    the same shifts. Returns the shifts on the model's device."""
     device = next(model.parameters()).device
     model.eval()
     zero = {k: v.to(device) for k, v in zero_shifts_for(model).items()}
-    per_image: List[List[np.ndarray]] = [[], [], [], []]
+    per_image: List[List[Optional[torch.Tensor]]] = [[], [], [], []]
     with torch.no_grad():
-        for batch in batches:
+        for i, batch in enumerate(batches):
+            z = draw_z(mini_batch_size)
+            if ranks is not None and i % ranks.world != ranks.rank:
+                for j in range(4):
+                    per_image[j].append(None)
+                continue
             rgb = batch["rgb"][:1].expand(mini_batch_size, -1, -1, -1)
-            acts = get_adain_init_act(model, zero, rgb, draw_z(mini_batch_size))
+            acts = get_adain_init_act(model, zero, rgb, z)
             for j, a in enumerate(acts):
-                per_image[j].append(a.float().mean((2, 3)).mean(0).cpu().numpy())
+                per_image[j].append(a.float().mean((2, 3)).mean(0))
     shifts = {}
     for j in range(4):
-        stack = np.stack(per_image[j])
+        dim = zero[f"mean{j}"].shape[0]
+        rows = torch.stack([torch.zeros(dim, device=device) if a is None else a
+                            for a in per_image[j]])
+        if ranks is not None:  # the others' rows are zeros here: the sum is exact
+            ranks.sum_([rows])
+        stack = rows.cpu().numpy()
         shifts[f"mean{j}"] = stack.mean(0).astype(np.float32)
         shifts[f"var{j}"] = stack.var(0, ddof=1 if stack.shape[0] > 1 else 0).astype(np.float32)
     if out_path is not None:
@@ -258,13 +350,15 @@ def compute_adain_stats(model: nn.Module, batches: Iterable[dict], draw_z, mini_
 
 
 def recache_z(model: nn.Module, shifts, tc: PriorTrainConfig, batches: Iterable[dict], draw_z,
-              gen: torch.Generator) -> np.ndarray:
+              gen: torch.Generator, ranks: Optional[dist.Ranks] = None) -> np.ndarray:
     """Per image the z of least total loss among ``num_samples //
     mini_batch_size`` sets (the floor, as the reference) of
     ``mini_batch_size`` draws (train_single.py:394-491): each set draws z as
     (B·mini, d) for the batch repeated image by image (row b·mini + j), in
-    eval mode; the first of equal losses wins. Returns (n_images, d) on the
-    host."""
+    eval mode; the first of equal losses wins. With ``ranks`` every rank
+    makes every draw, evaluates the images ``own_rows`` gives it, and the
+    chosen z are gathered, so every rank returns the same. Returns
+    (n_images, d) on the host."""
     model.eval()
     mini = tc.mini_batch_size
     selected = []
@@ -272,17 +366,32 @@ def recache_z(model: nn.Module, shifts, tc: PriorTrainConfig, batches: Iterable[
         for batch in batches:
             B = batch["rgb"].shape[0]
             rep = repeat_batch(batch, mini)
+            mine = own_rows(ranks, B)
+            nb = mine.stop - mine.start
+            rep_rows = slice(mine.start * mini, mine.stop * mini)
             losses, zs = [], []
             for _ in range(tc.num_samples // mini):
                 z = draw_z(B * mini)
                 draws = L.draw_criterion(gen, rep, tc.loss_mode)
-                _, _, total_raw = loss_fn(model, shifts, rep, z, draws, tc, train=False)
-                losses.append(total_raw.reshape(B, mini))
-                zs.append(z.reshape(B, mini, -1))
-            losses = torch.cat(losses, 1).cpu().numpy()
-            zs = torch.cat(zs, 1).cpu().numpy()
-            selected.append(zs[np.arange(B), np.argmin(losses, axis=1)])
-    return np.concatenate(selected, 0)
+                if nb == 0:
+                    continue
+                with dist.global_batch(ranks if nb < B else None):  # the plane loss's count
+                    _, _, total_raw = loss_fn(model, shifts, rows_of(rep, rep_rows),
+                                              z[rep_rows], draws_of(draws, rep_rows), tc,
+                                              train=False)
+                losses.append(total_raw.reshape(nb, mini))
+                zs.append(z[rep_rows].reshape(nb, mini, -1))
+            chosen = z.new_zeros((B, z.shape[1]))
+            if nb:
+                losses = torch.cat(losses, 1)
+                zs = torch.cat(zs, 1)
+                first_min = losses.cpu().numpy().argmin(axis=1)
+                chosen[mine] = zs[torch.arange(nb), torch.from_numpy(first_min).to(zs.device)]
+            selected.append(chosen)
+    out = torch.cat(selected, 0)
+    if ranks is not None:  # the others' rows are zeros here: the sum is exact
+        ranks.sum_([out])
+    return out.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -428,35 +537,122 @@ def check_init(model, shifts, first: dict, draw_z, mini: int, log_dir: str) -> N
 
 def main(argv=None) -> dict:
     """The trainer. Returns the model, its AdaIn shifts, the cached z, the
-    checkpoints written and the epochs' mean losses."""
+    checkpoints written, the epochs' mean losses and, for ``--dataset
+    multi``, the last epoch's visit order (global indices, and the source
+    of each)."""
     args = parse_args(argv)
-    if args.dataset == "multi":
-        sys.exit("--dataset multi (multi-corpus pretraining) is not ported yet: "
-                 "ROADMAP.md Queue 1 item 14")
-    if args.data_parallel:
-        sys.exit("--data_parallel (prior training over ranks) is not ported yet: "
-                 "ROADMAP.md Queue 1 item 14")
-    if not args.scene_dir:
+    if args.dataset == "multi" and not args.dataroot:
+        sys.exit("--dataset multi requires --dataroot")
+    if args.dataset == "scene" and not args.scene_dir:
         sys.exit("--dataset scene requires --scene_dir")
     from scade_tpu_torch.train.loop import check_device
 
     device = check_device(args.device)
-    with matmul_precision(args.precision):
-        return _train(args, device)
+    ranks = None
+    if args.data_parallel and dist.launched():
+        ranks, device, backend = dist.init_from_env(args.device)
+        print(f"data-parallel: rank {ranks.rank}/{ranks.world} on {device}, {backend}")
+    try:
+        world = 1 if ranks is None else ranks.world
+        if args.data_parallel and args.batchsize % world:
+            sys.exit(f"--batchsize {args.batchsize} not divisible by the {world}-device data axis")
+        hosts = 1 if ranks is None or args.dataset != "multi" else ranks.hosts()
+        if args.batchsize % hosts:
+            sys.exit(f"--batchsize {args.batchsize} not divisible by the {hosts} hosts")
+        with matmul_precision(args.precision):
+            return _train(args, device, ranks, hosts)
+    finally:
+        if ranks is not None:
+            dist.destroy()
 
 
-def _train(args, device) -> dict:
-    os.makedirs(args.log_dir, exist_ok=True)
-    tc = config_from_args(args)
+def _scene_input(args, device):
+    """--dataset scene: the scene's views, read once, in their order."""
     ds = FinetuneDataset(os.path.join(args.scene_dir, "train"), args.dataset_name,
                          crop_size=(args.image_size, args.image_size))
     examples = [ds[i] for i in range(len(ds))]
-    print(f"{len(examples)} training examples")
 
     def batches(bs, limit=None):
         n = len(examples) if limit is None else min(limit, len(examples))
         for s in range(0, n, bs):
             yield batch_to_torch(collate(examples[s:min(s + bs, n)]), device)
+
+    return len(examples), batches, lambda: None, lambda: None
+
+
+def _multi_input(args, device, hosts: int = 1):
+    """--dataset multi (tools/train_prior.py:160-212): one MultiDataset per
+    source, concatenated, visited in the interleaving sampler's order; the
+    order is drawn once here and anew at each ``reshuffle``. The sampler
+    shards over ``hosts`` replicas, one a host as the JAX tool runs one
+    process a host; a step's global batch is every host's next
+    ``batchsize / hosts`` examples of its shard, in host order (every rank
+    reads it whole and keeps its block). One host: the sampler's order."""
+    from scade_tpu_torch.prior.multi_data import (
+        InterleavedShardedSampler,
+        MultiDataset,
+        MultipleDataset,
+    )
+
+    sources = [MultiDataset(args.dataroot, name, args.phase_anno,
+                            crop_size=(args.image_size, args.image_size))
+               for name in args.dataset_list]
+    ds = MultipleDataset(sources)
+    # one sampler a host, each on the JAX tool's seed: their draws stay in step
+    samplers = [InterleavedShardedSampler(ds, num_replicas=hosts, rank=h,
+                                          sample_ratio=args.sample_ratio,
+                                          rng=np.random.default_rng(args.seed_num))
+                for h in range(hosts)]
+    per_host = args.batchsize // hosts
+
+    def global_order():
+        shards = [list(iter(sm)) for sm in samplers]
+        return [i for s in range(0, len(shards[0]), per_host)
+                for shard in shards for i in shard[s:s + per_host]]
+
+    order = {"idx": global_order()}
+
+    def reshuffle():
+        order["idx"] = global_order()
+
+    def batches(bs, limit=None):
+        idx = order["idx"] if limit is None else order["idx"][:limit]
+        for s in range(0, len(idx), bs):
+            yield batch_to_torch(collate_multi([ds[i] for i in idx[s:s + bs]]), device)
+
+    def visit_order():
+        src = np.searchsorted(ds._cum, order["idx"], side="right") - 1
+        return dict(index=list(order["idx"]), source=[args.dataset_list[d] for d in src])
+
+    return len(order["idx"]), batches, reshuffle, visit_order
+
+
+def write_loss_jsonl(path: str, loss_dicts: List[dict], epoch: int, first_step: int) -> int:
+    """Appends one JSON line per step (its global number, the epoch, each
+    loss); returns the next step's number."""
+    keys = sorted(loss_dicts[0])
+    rows = torch.stack([torch.stack([d[k] for k in keys]) for d in loss_dicts]).cpu()
+    with open(path, "a") as fp:
+        for i, row in enumerate(rows.tolist()):
+            rec = {"step": first_step + i, "epoch": epoch}
+            rec.update(zip(keys, row))
+            fp.write(json.dumps(rec) + "\n")
+    return first_step + len(loss_dicts)
+
+
+def _train(args, device, ranks: Optional[dist.Ranks] = None, hosts: int = 1) -> dict:
+    primary = ranks is None or ranks.primary
+    say = print if primary else (lambda *a, **k: None)
+    if primary:
+        os.makedirs(args.log_dir, exist_ok=True)
+    tc = config_from_args(args)
+    if args.dataset == "multi":
+        n_examples, batches, reshuffle, visit_order = _multi_input(args, device, hosts)
+    else:
+        n_examples, batches, reshuffle, visit_order = _scene_input(args, device)
+    say(f"{n_examples} training examples")
+    if args.data_parallel:
+        say(f"data-parallel over {1 if ranks is None else ranks.world} ranks")
 
     model = build_model(args, device)
     gen = torch.Generator(device=device).manual_seed(args.seed_num)
@@ -471,27 +667,30 @@ def _train(args, device) -> dict:
     jsonl_step = 0
     for epoch in range(args.epochs):
         if epoch == 0:
-            print("Initializing AdaIn layers")
-            compute_adain_stats(model, batches(1, args.adain_subset), draw_z,
-                                tc.mini_batch_size, out_path=mv_path)
-            shifts = load_mean_var_adain(mv_path, device=device)
-            print("AdaIn weights init done.")
+            say("Initializing AdaIn layers")
+            shifts = compute_adain_stats(model, batches(1, args.adain_subset), draw_z,
+                                         tc.mini_batch_size, mv_path if primary else None, ranks)
+            say("AdaIn weights init done.")
             if args.only_output_adain_init:
-                print(f"--only_output_adain_init: wrote {mv_path}, exiting")
-                return dict(model=model, shifts=shifts, z=None, checkpoints=[], losses=[])
+                say(f"--only_output_adain_init: wrote {mv_path}, exiting")
+                return dict(model=model, shifts=shifts, z=None, checkpoints=[], losses=[],
+                            order=visit_order())
             if args.check_init:
-                check_init(model, shifts, next(batches(1)), draw_z, tc.mini_batch_size,
-                           args.log_dir)
-                print("Done with debug block.")
-                return dict(model=model, shifts=shifts, z=None, checkpoints=[], losses=[])
+                if primary:
+                    check_init(model, shifts, next(batches(1)), draw_z, tc.mini_batch_size,
+                               args.log_dir)
+                say("Done with debug block.")
+                return dict(model=model, shifts=shifts, z=None, checkpoints=[], losses=[],
+                            order=visit_order())
 
         if args.debug_mode:
             if selected_z is None:
-                selected_z = np.zeros((len(examples), args.d_latent), np.float32)
+                selected_z = np.zeros((n_examples, args.d_latent), np.float32)
         elif epoch % tc.refresh_z == 0:
-            print("Recaching z-codes...")
-            selected_z = recache_z(model, shifts, tc, batches(args.batchsize), draw_z, gen)
-            print(f"cached z: {selected_z.shape}")
+            say("Recaching z-codes...")
+            reshuffle()  # a new visit order; the z are cached in it
+            selected_z = recache_z(model, shifts, tc, batches(args.batchsize), draw_z, gen, ranks)
+            say(f"cached z: {selected_z.shape}")
 
         totals, loss_dicts = [], []
         idx = 0
@@ -500,34 +699,34 @@ def _train(args, device) -> dict:
             B = batch["rgb"].shape[0]
             z = torch.from_numpy(selected_z[idx:idx + B]).to(device)
             idx += B
+            if ranks is not None and B % ranks.world:
+                continue  # the uneven remainder batch is dropped (train_prior.py:345-346)
             draws = L.draw_criterion(gen, batch, tc.loss_mode)
+            if ranks is not None:
+                mine = ranks.block(B)
+                batch, z, draws = rows_of(batch, mine), z[mine], draws_of(draws, mine)
             total, loss_dict = train_step(model, pre_opt if pretrain else opt, shifts, batch, z,
-                                          draws, tc)
+                                          draws, tc, ranks)
             totals.append(total)
             if args.loss_jsonl:
                 loss_dicts.append(loss_dict)
-        if args.loss_jsonl and loss_dicts:
-            keys = sorted(loss_dicts[0])
-            rows = torch.stack([torch.stack([d[k] for k in keys]) for d in loss_dicts]).cpu()
-            with open(args.loss_jsonl, "a") as fp:
-                for row in rows.tolist():
-                    rec = {"step": jsonl_step, "epoch": epoch}
-                    rec.update(zip(keys, row))
-                    fp.write(json.dumps(rec) + "\n")
-                    jsonl_step += 1
+        if args.loss_jsonl and loss_dicts and primary:
+            jsonl_step = write_loss_jsonl(args.loss_jsonl, loss_dicts, epoch, jsonl_step)
         if totals:
             epoch_means.append(torch.stack(totals).mean().item())
-            print(f"Epoch {epoch}/{args.epochs}: loss {epoch_means[-1]:.5f}")
+            say(f"Epoch {epoch}/{args.epochs}: loss {epoch_means[-1]:.5f}")
         else:
-            print(f"Epoch {epoch}/{args.epochs}: NO trainable batches: the loader yielded "
-                  "nothing")
+            say(f"Epoch {epoch}/{args.epochs}: NO trainable batches: the loader yielded "
+                "nothing, or every batch was a remainder that does not split over the ranks")
 
         if epoch % 8 == 0 or epoch == args.epochs - 1:
             path = os.path.join(args.log_dir, f"epoch{epoch}_step0.pth")
-            save_checkpoint(model, path, epoch)
+            if primary:
+                save_checkpoint(model, path, epoch)
+                say(f"saved {path}")
             saved.append(path)
-            print(f"saved {path}")
-    return dict(model=model, shifts=shifts, z=selected_z, checkpoints=saved, losses=epoch_means)
+    return dict(model=model, shifts=shifts, z=selected_z, checkpoints=saved, losses=epoch_means,
+                order=visit_order())
 
 
 if __name__ == "__main__":

@@ -28,11 +28,11 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 
 def packed(W, F, dtype, seed=0):
-    model = NeRF(NeRFConfig(D=8, W=W, input_ch=3 + 6 * F, input_ch_views=3),
-                 generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    model = NeRF(NeRFConfig(D=8, W=W, input_ch=3 + 6 * F, input_ch_views=3), generator=gen)
     with torch.no_grad():  # random biases, so a bias packed by mistake would show
         for p in model.parameters():
-            p.uniform_(-1, 1)
+            p.uniform_(-1, 1, generator=gen)
     cfg = fused_mlp.FusedCfg(8, W, F, (4,))
     weights = fused_mlp.flat_weights(model)
     return cfg, weights, fused_mlp.pack_weights(weights, cfg, dtype), \
@@ -60,13 +60,19 @@ def test_pack_round_trips(W, F, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,F", CONFIGS)
 def test_pack_pads_with_zeros(W, F, dtype):
-    _, _, buf, parts = packed(W, F, dtype)
+    cfg, weights, buf, parts = packed(W, F, dtype)
     used = torch.zeros(buf.numel(), dtype=torch.bool)
     for p in parts:
         used[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k] = True
     assert int(used.sum()) == sum(p.n * p.k for p in parts)  # no part overlaps another
     assert not bits(buf)[~used].any()
-    assert (buf[used] != 0).all()  # the weights were drawn in [-1, 1]: none is 0
+    # every weight lands in a used slot: the source's nonzero mask, packed,
+    # is nonzero exactly where the packed weights are (uniform_ can draw an
+    # exact 0, about once in 2^24 draws)
+    source_nonzero = fused_mlp.pack_weights([(w != 0).float() for w in weights], cfg,
+                                            dtype) != 0
+    assert (source_nonzero <= used).all()
+    assert torch.equal(buf != 0, source_nonzero)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -9,7 +9,8 @@ records), the strict load of the checkpoint into the port's dump and a dump
 from it, and that the JAX package's forward of that checkpoint (through
 ``translate.params_from_torch_state_dict``) equals the port's within 1e-4 of
 its largest magnitude (the bound of tests/test_torch_prior_model.py); the
-decoder side; the debug, pretrain, AdaIn-only and check-init paths; the
+decoder side; the debug, pretrain, AdaIn-only and check-init paths; a
+one-process run of ``--dataset multi`` and of ``--data_parallel``; the
 options that are refused.
 """
 
@@ -172,10 +173,27 @@ def test_adain_only_and_check_init(scene, tmp_path):
     np.testing.assert_array_equal(train.rainbow(x), matplotlib.colormaps["rainbow"](x)[:, :3])
 
 
-def test_refused_options(scene, tmp_path):
-    for extra, match in ((["--dataset", "multi"], "item 14"), (["--data_parallel"], "item 14")):
-        with pytest.raises(SystemExit, match=match):
-            train.main(flags(scene, tmp_path, *extra))
+def test_refused_options(scene, tmp_path, capsys):
+    """``--dataset multi`` and ``--data_parallel`` run (in one process,
+    ``--data_parallel`` is one rank and trains what the plain run trains);
+    what stays refused: multi without a root, ``--device cuda`` without a
+    card, a flax msgpack."""
+    corpus = str(tmp_path / "corpus")
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools", "make_prior_corpus.py"), corpus,
+                    "--n", "3", "--n_val", "0", "--H", "40", "--W", "48"], check=True,
+                   capture_output=True)
+    quick = ["--epochs", "1", "--debug_mode", "--loss_mode", "_meanstd-tanh_msgil-normal_"]
+    multi = train.main(flags(None, tmp_path / "multi", *quick, "--dataset", "multi",
+                             "--dataroot", corpus)[2:])
+    assert "3 training examples" in capsys.readouterr().out
+    assert multi["order"]["source"] == ["taskonomy"] * 3 and np.isfinite(multi["losses"]).all()
+    with pytest.raises(SystemExit, match="requires --dataroot"):
+        train.main(flags(None, tmp_path, "--dataset", "multi")[2:])
+    plain = train.main(flags(scene, tmp_path / "plain", *quick))
+    dp = train.main(flags(scene, tmp_path / "dp", *quick, "--data_parallel"))
+    assert "data-parallel over 1 ranks" in capsys.readouterr().out
+    a, b = plain["model"].state_dict(), dp["model"].state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
     argv = flags(scene, tmp_path)
     argv[argv.index("cpu")] = "cuda"
     if not torch.cuda.is_available():
