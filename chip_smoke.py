@@ -49,6 +49,19 @@ comparing K1 builds of two trees on one card):
           1 rank run twice (the card's run-to-run spread is the witness: the
           first step's loss and gradients, the parameters' median distance),
           the ranks' parameters bit-equal, then a sharded `test` against 1 rank
+  tp      the mesh's model axis (parallel/mesh.py): 2 ranks as data 1 x model 2
+          (torchrun, gloo on the one card), the reference defaults on the
+          train phase's scene, 5 steps with K1 on (its weights gathered whole,
+          2 launches a step per rank) and 1 on the column-parallel plain path
+          (use_fused=False), each held to 1 rank run twice as dp holds its
+          ranks; the replicated tensors bit-equal across the model ranks,
+          half of each sharded weight, bias and Adam moment on each rank
+  spvcnn  the SPVCNN classifier (prior/spvcnn.py) at cr=1.0 through
+          refine_focal (5 channels) and refine_shift (3 channels) on a seeded
+          468x624 depth map at the input functions' 100,000-point capacity: the
+          card's logits against the CPU's (f32, TF32 off), forward ms with
+          the kernel maps apart from the gathers and products, peak GB, the
+          voxel sites at each stride
   prior_train  the depth prior's training path as a user runs it:
           `python -m scade_tpu_torch.prior.train` on the cli phase's kind of
           scene with the full-width ResNeXt101-32x8d cIMLE model (v2,
@@ -85,8 +98,9 @@ phase's train run, error, times and bound), the card's name and power limit, and
 a JSON line naming the device. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Needs one card. With --dp-only N
 it runs the device phase, then the dp phase on N ranks (NCCL where there
-are N cards) and the prior's first step over N ranks from seeded weights
-(line prior_dp; N divides 4), and prints no result line; with --prior-only
+are N cards), for even N the tp phase on N ranks (N/2 x 2), and the prior's
+first step over N ranks from seeded weights (line prior_dp; N divides 4),
+and prints no result line; with --prior-only
 the device, prior_train, prior and prior_pretrain phases, and no result
 line.
 """
@@ -119,10 +133,13 @@ from scade_tpu_torch.eval import evaluate
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops.rays import get_rays
+from scade_tpu_torch.parallel import dist as par_dist
+from scade_tpu_torch.parallel import mesh as tp_mesh
 from scade_tpu_torch.prior import data as prior_data
 from scade_tpu_torch.prior import dump as prior_dump
 from scade_tpu_torch.prior import losses as prior_losses
 from scade_tpu_torch.prior import model as prior_model
+from scade_tpu_torch.prior import spvcnn
 from scade_tpu_torch.prior import train as prior_train
 from scade_tpu_torch.render.renderer import (
     SceneVars,
@@ -261,6 +278,22 @@ METRICS_REL = 1e-6
 # is a count of flips, not an error. The later steps' losses drift apart for
 # the same reason and are printed, not held.
 DP_STEPS, DP_SPREAD_RATIO, DP_REL = 5, 2.0, 1e-5
+# The tp phase: the model axis (parallel/mesh.py) on a grid of ranks with
+# TP_N_MODEL model columns, at the reference defaults, held to 1 rank run
+# twice by the dp phase's rule: DP_STEPS steps with K1 on (its weights
+# gathered whole), then TP_PLAIN_STEPS with use_fused=False (the
+# column-parallel MLP, its activations gathered) against the plain 1-rank
+# step.
+TP_N_MODEL, TP_PLAIN_STEPS = 2, 1
+# The spvcnn phase: the classifier at cr=1.0 (pres = vres = 0.01) on a
+# seeded 468x624 depth map at focal
+# SPVCNN_FOCAL px, through refine_focal (5 channels, voxel 0.005) and
+# refine_shift (3 channels, voxel 0.01) at the input functions' 100,000-point
+# capacity. The card's logits (f32, TF32 off) against the CPU's to
+# SPVCNN_RTOL relative (atol SPVCNN_ATOL): both sum in f32 in other orders
+# (the products, and index_add_ in the voxel means and pooling, which the
+# card sums in no fixed order); the sites and kernel maps are exact on both.
+SPVCNN_FOCAL, SPVCNN_RTOL, SPVCNN_ATOL, SPVCNN_REPS = 577.9, 1e-4, 1e-6, 5
 SCRIPT = os.path.abspath(__file__)
 
 
@@ -1460,6 +1493,319 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         os.chdir(cwd)
 
 
+def tp_run(scene: SceneTensors, seed: int, fused: bool, steps: int, grid=None) -> dict:
+    """``steps`` train steps at the reference defaults on ``make_scene(seed)``'s
+    ``scene`` through ``make_train_step(ranks=grid)``, on a state from
+    ``create_train_state(grid=grid)`` (``use_fused=False``: the plain MLP,
+    column-parallel on a grid): the losses, each step's ms and launches, the
+    first step's grads as applied and the params after, whole (gathered over
+    the model group); on a grid also the replicated tensors and what this
+    rank holds."""
+    rc = make_render_config(use_fused=fused)
+    tc = TrainConfig()
+    state = create_train_state(seed, rc, tc, n_images=N_TRAIN + N_VAL, grid=grid)
+    step_fn = make_train_step(rc, tc, H, W, N_TRAIN, ranks=grid)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    first, apply = [], train_step.apply_grads
+
+    def spy(st, grads, g_scales, g_shifts, *args, **kwargs):
+        if not first:
+            whole = tp_mesh.gather_nerf(st, grads) + [g_scales, g_shifts]
+            first.append(torch.cat([g.detach().flatten().cpu() for g in whole]))
+        return apply(st, grads, g_scales, g_shifts, *args, **kwargs)
+
+    losses, ms, launches = [], [], []
+    with mock.patch.object(train_step, "apply_grads", spy):
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            metrics = step_fn(state, scene, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            launches.append({k: after[k] - before[k] for k in after})
+            losses.append(float(metrics["loss"]))
+    models = (("coarse", state.model_coarse), ("fine", state.model_fine))
+    params = {f"{w}.{k}": v.cpu() for w, m in models for k, v in tp_mesh.gather_params(m).items()}
+    out = dict(losses=losses, ms=ms, launches=launches, grads=first[0], params=params)
+    if grid is not None:
+        dims = tp_mesh.nerf_dims(state)
+        names = [f"{w}.{k}" for w, m in models for k, _ in m.named_parameters()]
+        local = state.nerf_params()
+        rep = ([p for p, d in zip(local, dims) if d is None]
+               + [m for m, d in zip(state.opt.mu + state.opt.nu, dims + dims) if d is None]
+               + [state.scales, state.shifts, *state.ss_opt.mu, *state.ss_opt.nu])
+        sharded = [(n, p, mu, nu) for n, p, mu, nu, d in
+                   zip(names, local, state.opt.mu, state.opt.nu, dims) if d is not None]
+        out.update(
+            replicated=torch.cat([t.detach().flatten().cpu() for t in rep]),
+            n_sharded=len(sharded),
+            halves=all(p.shape[0] * grid.n_model == params[n].shape[0]
+                       and p.shape[1:] == params[n].shape[1:] and mu.shape == p.shape
+                       and nu.shape == p.shape for n, p, mu, nu in sharded),
+            held_bytes=3 * 4 * sum(p.numel() for p in local),
+            whole_bytes=3 * 4 * sum(params[n].numel() for n in names),
+            sharded_held_bytes=3 * 4 * sum(p.numel() for _, p, _, _ in sharded),
+            sharded_whole_bytes=3 * 4 * sum(params[n].numel() for n, _, _, _ in sharded),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def tp_worker(out_dir: str, seed: int) -> int:
+    """One rank of the tp phase (torchrun): a grid of TP_N_MODEL model
+    columns, DP_STEPS steps with K1 on, then TP_PLAIN_STEPS on the plain
+    column-parallel path, each from the seed's weights."""
+    ranks, device, backend = par_dist.init_from_env("cuda")
+    try:
+        grid = par_dist.make_grid(TP_N_MODEL)
+        rec = dict(rank=ranks.rank, data_index=grid.data_index, model_index=grid.model_index,
+                   backend=backend, device=device)
+        scene = make_scene(seed)
+        torch.cuda.reset_peak_memory_stats()
+        rec["fused"] = tp_run(scene, seed, True, DP_STEPS, grid)
+        torch.cuda.empty_cache()
+        rec["plain"] = tp_run(scene, seed, False, TP_PLAIN_STEPS, grid)
+        torch.save(rec, os.path.join(out_dir, f"tp_rank{ranks.rank}.pt"))
+    finally:
+        par_dist.destroy()
+    return 0
+
+
+def witness_check(a: dict, b: dict, got: dict) -> dict:
+    """``got`` (from ranks) held to two 1-rank runs ``a`` and ``b`` by the dp
+    phase's rule: the first loss and first grads within DP_SPREAD_RATIO times
+    the 1-rank spread or DP_REL of their magnitude, the params' median
+    distance likewise."""
+    d_one, d_got = abs_diffs(b["params"], a["params"]), abs_diffs(got["params"], a["params"])
+    scale = max(t.abs().max().item() for t in a["params"].values())
+    out = {}
+    for name, err, spread, mag in (
+            ("params_median", d_got.median().item(), d_one.median().item(), scale),
+            ("first_loss", abs(got["losses"][0] - a["losses"][0]),
+             abs(b["losses"][0] - a["losses"][0]), abs(a["losses"][0])),
+            ("first_grads", (got["grads"] - a["grads"]).abs().max().item(),
+             (b["grads"] - a["grads"]).abs().max().item(), a["grads"].abs().max().item())):
+        tol = max(DP_SPREAD_RATIO * spread, DP_REL * mag)
+        out[name] = dict(err=err, spread=spread, tol=tol, ok=err <= tol)
+    out["params_max"] = dict(err=d_got.max().item(), spread=d_one.max().item())
+    return out
+
+
+def phase_tp(seed: int, world: int = 2) -> dict:
+    """The mesh's model axis: ``world`` ranks (torchrun, this script as each
+    rank's program: ``--tp-worker``; NCCL with a card a rank, else gloo on the
+    one card) as ``world / TP_N_MODEL`` data rows by TP_N_MODEL model
+    columns, at the reference defaults (8x256, 64+128 samples, N_rand 1024,
+    f32) on the train phase's scene, held to 1 rank run twice: DP_STEPS
+    steps with K1 on (2 launches a step per rank, on gathered weights), then
+    TP_PLAIN_STEPS on the column-parallel plain path (use_fused=False)
+    against the plain 1-rank step. A data row's ranks hold bit-equal
+    replicated tensors, and each rank 1/TP_N_MODEL of each sharded weight,
+    bias and Adam moment."""
+    t_phase = time.perf_counter()
+    scene = make_scene(seed)
+    one = {name: [tp_run(scene, seed, fused, steps) for _ in range(2)]
+           for name, fused, steps in (("fused", True, DP_STEPS), ("plain", False, TP_PLAIN_STEPS))}
+    del scene
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="scade_tp_")
+    try:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+               "--master_addr", "127.0.0.1", "--master_port", str(free_port()), SCRIPT,
+               "--tp-worker", out, str(seed)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        command_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"tp: torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        ranks = [torch.load(os.path.join(out, f"tp_rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    want = {"fused": {"k1": 2, "k2": 2}, "plain": {"k1": 0, "k2": 2}}
+    # the coarse and the fine model's sharded tensors, by the rule on a whole model
+    n_sharded = 2 * sum(d is not None for d in tp_mesh.nerf_param_specs(
+        NeRF(make_render_config(device="cpu").nerf_coarse)).values())
+    held = {name: [witness_check(*one[name], r[name]) for r in ranks] for name in one}
+    checks = {
+        f"{world} ranks as {world // TP_N_MODEL}x{TP_N_MODEL}": sorted(
+            (r["data_index"], r["model_index"]) for r in ranks) == [
+                (d, m) for d in range(world // TP_N_MODEL) for m in range(TP_N_MODEL)],
+        "launches per step per rank": all(
+            all(d == want[name] for d in r[name]["launches"]) for r in ranks for name in want),
+        "replicated bit-equal across a data row": all(
+            torch.equal(a[name]["replicated"], b[name]["replicated"])
+            for a in ranks for b in ranks if a["data_index"] == b["data_index"] for name in one),
+        "each rank holds 1/n_model of each sharded weight, bias, moment": all(
+            r[name]["halves"] and r[name]["n_sharded"] == n_sharded
+            for r in ranks for name in one),
+        "params, first loss, first grads within the 1-rank spread": all(
+            c["ok"] for h in held.values() for r in h for k, c in r.items() if "ok" in c),
+        "finite losses": all(math.isfinite(x) for r in ranks for name in one
+                             for x in r[name]["losses"]),
+    }
+    r0 = ranks[0]
+    line("tp", world=world, n_model=TP_N_MODEL, backend=[r["backend"] for r in ranks],
+         steps=DP_STEPS, plain_steps=TP_PLAIN_STEPS, n_rand=1024,
+         rays_per_data_row=1024 // (world // TP_N_MODEL),
+         held={name: [{k: {kk: vv for kk, vv in c.items() if kk != "ok"} for k, c in h.items()}
+                      for h in held[name]] for name in held},
+         losses=dict(fused=[r["fused"]["losses"] for r in ranks],
+                     one_a=one["fused"][0]["losses"], one_b=one["fused"][1]["losses"],
+                     plain=[r["plain"]["losses"] for r in ranks],
+                     plain_one=[x["losses"] for x in one["plain"]]),
+         ms_per_step=dict(
+             per_rank=[statistics.median(r["fused"]["ms"][1:]) for r in ranks],
+             one_rank=[statistics.median(x["ms"][1:]) for x in one["fused"]],
+             first_step_per_rank=[r["fused"]["ms"][0] for r in ranks],
+             plain_per_rank=[r["plain"]["ms"] for r in ranks],
+             plain_one_rank=[x["ms"] for x in one["plain"]]),
+         bytes_per_rank=dict(
+             nerf_params_and_moments=[r["fused"]["held_bytes"] for r in ranks],
+             whole=r0["fused"]["whole_bytes"],
+             sharded_tensors=[r["fused"]["sharded_held_bytes"] for r in ranks],
+             sharded_tensors_whole=r0["fused"]["sharded_whole_bytes"]),
+         n_sharded_tensors=r0["fused"]["n_sharded"],
+         launches=[r["fused"]["launches"] for r in ranks],
+         peak_gb_per_rank=[r["plain"]["peak_gb"] for r in ranks],
+         command_s=command_s, phase_s=time.perf_counter() - t_phase, checks=checks)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"tp: failed {bad}")
+    return dict(launches=r0["fused"]["launches"])
+
+
+def spvcnn_depth(seed: int) -> np.ndarray:
+    """A seeded 468x624 depth map of a room-like scene (a tilted back wall
+    and floor, smooth bumps, 1% invalid pixels), in metres."""
+    rng = np.random.default_rng(seed)
+    v, u = np.meshgrid(np.arange(H, dtype=np.float32), np.arange(W, dtype=np.float32),
+                       indexing="ij")
+    depth = (2.0 + 1.5 * v / H + 0.4 * u / W + 0.3 * np.sin(u / 53.0) * np.cos(v / 41.0)
+             + 0.005 * rng.standard_normal((H, W))).astype(np.float32)
+    depth[rng.random((H, W)) < 0.01] = 0.0
+    return depth
+
+
+class SpvcnnProbe:
+    """Times the classifier's parts with a synchronize around each call (so
+    only in a pass of its own): the kernel maps (kernel_map, sparse_unique)
+    apart from the gathers and products (_sparse_products), and
+    counts the voxel sites of each conv's output by its stride."""
+
+    def __init__(self):
+        self.map_ms, self.gemm_ms, self.sites = 0.0, 0.0, {}
+        self._patches = [mock.patch.object(spvcnn, name, self._timed(getattr(spvcnn, name), kind))
+                         for name, kind in (("kernel_map", "map"), ("sparse_unique", "map"),
+                                            ("_sparse_products", "gemm"))]
+        conv = spvcnn.sparse_conv3d
+
+        def counted(*args, **kwargs):
+            y = conv(*args, **kwargs)
+            self.sites[y.stride] = int(y.mask.sum())
+            return y
+
+        self._patches.append(mock.patch.object(spvcnn, "sparse_conv3d", counted))
+
+    def _timed(self, fn, kind):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if kind == "map":
+                self.map_ms += dt
+            else:
+                self.gemm_ms += dt
+            return out
+        return wrapped
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def phase_spvcnn(seed: int) -> dict:
+    """The SPVCNN classifier (prior/spvcnn.py) at full width on the card:
+    refine_focal with a 5-channel model and refine_shift with a 3-channel
+    one (seeded weights, cr=1.0, pres = vres) on a seeded 468x624 depth map,
+    on the card and on the CPU; their logits held within SPVCNN_RTOL; the
+    forward's ms (the kernel maps apart from the gathers and products in a
+    synchronized pass), peak GB and the voxel sites at each stride."""
+    t_phase = time.perf_counter()
+    depth = spvcnn_depth(seed)
+    u0, v0 = W / 2.0, H / 2.0
+    res = {}
+    for name, channels in (("focal", 5), ("shift", 3)):
+        cfg = spvcnn.SPVCNNConfig(input_channel=channels, num_classes=1, cr=1.0, pres=0.01,
+                                  vres=0.01)
+        cpu_model = spvcnn.init_spvcnn(cfg, torch.Generator().manual_seed(seed + channels))
+        card_model = spvcnn.init_spvcnn(cfg, torch.Generator().manual_seed(seed + channels))
+        card_model.cuda()
+        seen = {"cpu": [], "cuda": []}
+
+        def bound(model, dev):
+            def apply(points):
+                with torch.no_grad():
+                    out = model(points.to(dev))
+                seen[dev].append((points, out.cpu()))
+                return out
+            return apply
+
+        values, secs = {}, {}
+        for dev, model in (("cuda", card_model), ("cpu", cpu_model)):
+            t0 = time.perf_counter()
+            if name == "focal":
+                values[dev] = spvcnn.refine_focal(depth, SPVCNN_FOCAL, bound(model, dev), u0, v0)
+            else:
+                values[dev] = spvcnn.refine_shift(depth, bound(model, dev), SPVCNN_FOCAL, u0, v0)
+            secs[dev] = time.perf_counter() - t0
+        points, card_logit = seen["cuda"][0]
+        cpu_logit = seen["cpu"][0][1]
+        err = (card_logit - cpu_logit).abs().max().item()
+        tol = SPVCNN_RTOL * cpu_logit.abs().max().item() + SPVCNN_ATOL
+        pts = points.to("cuda")
+        with torch.no_grad():
+            card_model(pts)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: card_model(pts), reps=SPVCNN_REPS, warmup=0)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with SpvcnnProbe() as probe:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card_model(pts)
+                torch.cuda.synchronize()
+                probed_ms = (time.perf_counter() - t0) * 1e3
+        res[name] = dict(channels=channels, valid_points=int(points.mask.sum()),
+                         capacity=points.mask.numel(), value_card=values["cuda"],
+                         value_cpu=values["cpu"], logit_card=card_logit.item(),
+                         logit_cpu=cpu_logit.item(), abs_err=err, tol=tol, ok=err <= tol,
+                         forward_ms=ms, probed_pass_ms=probed_ms, kernel_map_ms=probe.map_ms,
+                         gather_matmul_ms=probe.gemm_ms,
+                         other_ms=probed_ms - probe.map_ms - probe.gemm_ms,
+                         sites_by_stride={str(k): v for k, v in sorted(probe.sites.items())},
+                         peak_gb=peak_gb, card_call_s=secs["cuda"], cpu_call_s=secs["cpu"],
+                         params=sum(p.numel() for p in cpu_model.parameters()))
+        del card_model
+        torch.cuda.empty_cache()
+    checks = {f"{k} card logit within rtol of the CPU's": v["ok"] for k, v in res.items()}
+    checks["finite"] = all(math.isfinite(v["logit_card"]) for v in res.values())
+    line("spvcnn", H=H, W=W, focal_px=SPVCNN_FOCAL, cr=1.0, rtol=SPVCNN_RTOL, **res,
+         phase_s=time.perf_counter() - t_phase, checks=checks)
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"spvcnn: failed {bad}")
+    return res
+
+
 def conv_linear_flops(model, x, z, shifts) -> int:
     """Operations (2 per multiply-add) of every Conv2d and Linear in one
     forward of ``model``, counted from their weights and output shapes."""
@@ -2211,6 +2557,8 @@ def main() -> int:
         return dp_worker(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--prior-dp-worker"]:  # one rank of the prior_dp check (torchrun)
         return prior_dp_worker(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of the tp phase (torchrun)
+        return tp_worker(sys.argv[2], int(sys.argv[3]))
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=20)
@@ -2223,8 +2571,9 @@ def main() -> int:
                              "paths alone")
     parser.add_argument("--dp-only", type=int, default=0, metavar="N",
                         help="run the device phase, then the dp phase on N ranks on a "
-                             "freshly written scene and the prior's step over N ranks, and print "
-                             "no result line: for data parallelism over N cards (NCCL)")
+                             "freshly written scene, for even N the tp phase (N/2 x 2), and the "
+                             "prior's step over N ranks, and print no result line: for data and "
+                             "model parallelism over N cards (NCCL)")
     args = parser.parse_args()
     if args.dp_only and 4 % args.dp_only:
         parser.error(f"--dp-only {args.dp_only}: N must divide the prior's global batch of 4")
@@ -2241,6 +2590,8 @@ def main() -> int:
         try:
             write_scene(tmp, args.seed)
             phase_dp(tmp, args.seed, args.dp_only)
+            if args.dp_only % TP_N_MODEL == 0:
+                phase_tp(args.seed, args.dp_only)
             # the prior's step over the N cards, from fresh seeded weights
             write_corpus(os.path.join(tmp, "corpus"), args.seed)
             cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
@@ -2278,23 +2629,29 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    tp = phase_tp(args.seed)
+    torch.cuda.empty_cache()
+    phase_spvcnn(args.seed)
+    torch.cuda.empty_cache()
     phase_prior_paths(args.seed)
+    tp_launches = {k: sum(d[k] for d in tp["launches"]) for k in ("k1", "k2")}
 
     # launches: the CLI's train run (20 steps and 6 rendered views), the main
-    # path as a user drives it; launches_train_phase: the bare train phase's
+    # path as a user drives it; launches_tp_phase: rank 0's in the tp phase's
+    # DP_STEPS steps on the model axis; launches_train_phase: the bare train phase's
     kernels = [
         dict(name="fused_mlp", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
              replaces="scade_tpu/ops/fused_mlp.py:187", launches=cli_launches["k1"],
              max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
              bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass",
-             launches_train_phase=train_launches["k1"],
+             launches_train_phase=train_launches["k1"], launches_tp_phase=tp_launches["k1"],
              max_abs_err_bf16=k1["max_abs_err_bf16"], fma_bound_ms=k1["fma_bound_ms"]),
         dict(name="sample_pdf", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:110", launches=cli_launches["k2"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None, check="pass",
-             launches_train_phase=train_launches["k2"],
+             launches_train_phase=train_launches["k2"], launches_tp_phase=tp_launches["k2"],
              wall_ms=k2["wall_ms"], max_abs_err_vs_sample_pdf=k2["max_abs_err_vs_sample_pdf"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

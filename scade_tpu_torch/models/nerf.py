@@ -11,6 +11,10 @@ sqrt(2) on hidden layers and 1 on heads, zero biases.
 ``compute_dtype=torch.bfloat16`` rounds as the JAX package's ``nerf_apply``
 does: matmul operands in bf16 with f32 accumulation, hidden activations
 stored in bf16 with a bf16 bias, heads produced in f32.
+
+A model sharded over a model axis (``parallel/mesh.py::shard_params`` sets
+``model_axis``) runs its sharded layers column-parallel: each rank computes
+its output columns, and the model group gathers them along the last dim.
 """
 
 from __future__ import annotations
@@ -63,6 +67,10 @@ def _dense(x, layer: nn.Linear, compute_dtype, out_dtype=torch.float32):
 
 
 class NeRF(nn.Module):
+    # parallel/mesh.py's ModelAxis (the grid and the names of the sharded
+    # layers) once shard_params has kept this rank's rows; None: whole
+    model_axis = None
+
     def __init__(self, cfg: NeRFConfig, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
@@ -100,22 +108,33 @@ class NeRF(nn.Module):
         input_views = x[..., cfg.input_ch:].to(hd)
 
         h = input_pts
-        for i, layer in enumerate(self.pts_linears):
-            h = torch.relu(_dense(h, layer, cd, out_dtype=hd))
+        for i in range(cfg.D):
+            h = torch.relu(self._layer(h, f"pts_linears.{i}", out_dtype=hd))
             if i in cfg.skips:
                 h = torch.cat([input_pts, h], dim=-1)
 
         if cfg.use_viewdirs:
-            alpha = _dense(h, self.alpha_linear, cd)
-            feature = _dense(h, self.feature_linear, cd, out_dtype=hd)
+            alpha = self._layer(h, "alpha_linear")
+            feature = self._layer(h, "feature_linear", out_dtype=hd)
             h = torch.cat([feature, input_views], dim=-1)
-            for layer in self.views_linears:
-                h = torch.relu(_dense(h, layer, cd, out_dtype=hd))
-            rgb = _dense(h, self.rgb_linear, cd)
+            for i in range(len(self.views_linears)):
+                h = torch.relu(self._layer(h, f"views_linears.{i}", out_dtype=hd))
+            rgb = self._layer(h, "rgb_linear")
             return torch.cat([rgb, _softplus_beta10(alpha)], dim=-1)
 
-        out = _dense(h, self.output_linear, cd)
+        out = self._layer(h, "output_linear")
         return torch.cat([out[..., :3], _softplus_beta10(out[..., 3:])], dim=-1)
+
+    def _layer(self, x, name: str, out_dtype=torch.float32):
+        """``_dense`` of the layer ``name``; column-parallel where it is
+        sharded: the input's grad is summed over the model group (each rank's
+        holds its columns' share), the output gathered from it."""
+        layer = self.get_submodule(name)
+        axis = self.model_axis
+        if axis is None or name not in axis.layers:
+            return _dense(x, layer, self.cfg.compute_dtype, out_dtype)
+        y = _dense(axis.ranks.model_copy(x), layer, self.cfg.compute_dtype, out_dtype)
+        return axis.ranks.model_gather(y, -1)
 
 
 def nerf_num_params(model: NeRF) -> int:

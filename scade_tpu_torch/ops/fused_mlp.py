@@ -57,10 +57,21 @@ def supports_fusion(nerf_cfg, embed_pos, embed_dirs, input_ch_cam: int) -> bool:
 
 def flat_weights(model) -> List[torch.Tensor]:
     """(weight, bias) pairs in the kernel's order: trunk, alpha, feature,
-    views, rgb."""
-    layers = [*model.pts_linears, model.alpha_linear, model.feature_linear,
-              model.views_linears[0], model.rgb_linear]
-    return [t for layer in layers for t in (layer.weight, layer.bias)]
+    views, rgb. On a model sharded over a model axis (``parallel/mesh.py``)
+    each sharded tensor is first gathered whole over the model group (the
+    kernel computes the whole network per point), differentiably: the
+    backward hands each rank the grad of its own rows. This is what XLA does
+    with a custom call that has no partitioning rule."""
+    names = [*(f"pts_linears.{i}" for i in range(len(model.pts_linears))), "alpha_linear",
+             "feature_linear", "views_linears.0", "rgb_linear"]
+    axis = model.model_axis
+    out = []
+    for name in names:
+        layer = model.get_submodule(name)
+        for t in (layer.weight, layer.bias):
+            out.append(t if axis is None or name not in axis.layers
+                       else axis.ranks.model_gather(t, 0))
+    return out
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,

@@ -18,7 +18,15 @@
 - ``dump``, ``dump_wild``, ``demo`` — ``python -m scade_tpu_torch.prior.dump``
   and its wild and raw-folder variants, which write the
   ``leres_cimle/<dir>/<img>_<k>.npy`` hypotheses the NeRF trains on.
-
-Not ported yet (ROADMAP.md Queue 1 item 14): prior training over ranks,
-multi-corpus pretraining and the baseline model with its auxi branch.
+- ``multi_data`` — the multi-corpus reader and sampler of pretraining.
+- ``spvcnn``     — the SPVCNN point-cloud classifier and its depth → point
+  cloud input functions (``refine_focal``, ``refine_shift``), dead code upstream.
 """
+
+from scade_tpu_torch.prior.spvcnn import (  # noqa: F401
+    SPVCNN,
+    SPVCNNConfig,
+    SparsePoints,
+    SparseVoxels,
+    init_spvcnn,
+)

@@ -190,3 +190,33 @@ def load_prior_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     for k in [k for k in sd if k.endswith(".running_mean")]:
         sd.setdefault(k[: -len("running_mean")] + "num_batches_tracked", torch.tensor(0))
     return sd
+
+
+_SPVCNN_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def spvcnn_params_to_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's SPVCNN params (``scade_tpu/prior/spvcnn.py::init_spvcnn``'s
+    pytree, numpy leaves) → ``prior/spvcnn.py::SPVCNN``'s state_dict. A conv
+    ``w`` keeps its (ks³, Cin, Cout) layout; a Linear ``w`` (Cin, Cout) is
+    the transposed ``weight``, ``b`` its ``bias``; a BN's scale, bias, mean
+    and var are its weight, bias, running_mean and running_var."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: dict, prefix: str):
+        for key, value in node.items():
+            name = f"{prefix}{key}"
+            if isinstance(value, dict):
+                walk(value, name + ".")
+                continue
+            a = np.array(value, np.float32)
+            if prefix.endswith("bn."):
+                name = prefix + _SPVCNN_BN[key]
+            elif key == "w" and a.ndim == 2:
+                name, a = prefix + "weight", np.ascontiguousarray(a.T)
+            elif key == "b":
+                name = prefix + "bias"
+            out[name] = torch.from_numpy(a)
+
+    walk(params, "")
+    return out

@@ -18,7 +18,9 @@ Under data parallelism (``parallel/dist.py``) a rank renders a block of a
 batch: ``render_rays(block=RayBlock(rows, total))`` makes every draw for the
 whole batch and keeps the block's rows, so the ranks together draw what one
 device would; ``render_image(ranks=...)`` splits an image's rays into
-contiguous blocks, one a rank, and reassembles the maps on every rank.
+contiguous blocks, one a data row, and reassembles the maps on every rank.
+A model whose layers are sharded over a model axis (``parallel/mesh.py``)
+gathers what it needs itself, in ``NeRF.forward`` and in K1's wrapper.
 """
 
 from __future__ import annotations
@@ -367,9 +369,12 @@ def render_image(
     ``with_5_9``).
 
     ranks: render sharded over the process group (every rank must call it):
-    the flattened rays split into equal contiguous blocks, the last padded
-    with copies of the last ray, each rank renders its block, and every rank
-    gets the whole maps (scade_tpu/render/renderer.py:467-526)."""
+    the flattened rays split into equal contiguous blocks, one a data row
+    (the last padded with copies of the last ray), each data row renders its
+    block, and every rank gets the whole maps
+    (scade_tpu/render/renderer.py:467-526). On a grid with a model axis the
+    ranks of a row render their block together, each with its columns of
+    the sharded layers (``parallel/mesh.py``)."""
     device = torch.device(rc.device)
     intrinsic = torch.as_tensor(intrinsic, dtype=torch.float32, device=device)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
@@ -389,11 +394,11 @@ def render_image(
                                    float(far), chunk=chunk, outputs=outputs)
         else:
             n = rays_o.shape[0]
-            per = -(-n // ranks.world)
-            mine = slice(ranks.rank * per, (ranks.rank + 1) * per)
+            per = -(-n // ranks.n_data)
+            mine = slice(ranks.data_index * per, (ranks.data_index + 1) * per)
 
             def padded(x):
-                return torch.cat([x, x[-1:].expand(per * ranks.world - n, 3)])[mine]
+                return torch.cat([x, x[-1:].expand(per * ranks.n_data - n, 3)])[mine]
 
             out = render_ray_batch(scene, rc.test_mode(), padded(rays_o), padded(rays_d),
                                    float(near), float(far), chunk=min(chunk, per),

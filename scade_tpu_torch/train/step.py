@@ -20,6 +20,15 @@ rays, with the draws the whole batch would give them (``RayBlock``). Each
 rank's loss is scaled by 1/world and the grads and metrics summed over the
 ranks in one collective, so every rank applies the same Adam step and the
 step is the one-device step (scade_tpu/train/step.py:251-270).
+
+On a grid with a model axis (``parallel/dist.py::make_grid``,
+``parallel/mesh.py``) the ranks of a data row share a block of rays and
+each holds its rows of the sharded layers and of their Adam moments. The
+loss is scaled by 1/n_data; a sharded tensor's grad is summed over the data
+group; a replicated one's (the heads, scales, shifts) is summed over every
+rank and divided by n_model, which in exact arithmetic is the data group's
+sum and leaves the copies on a data row's ranks bit-equal, where a
+backward's atomics could have made them differ in the last bit.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops.losses import compute_space_carving_loss, img2mse, mse2psnr
 from scade_tpu_torch.ops.rays import get_rays
+from scade_tpu_torch.parallel import mesh
 from scade_tpu_torch.parallel.dist import Ranks
 from scade_tpu_torch.render.renderer import RayBlock, RenderConfig, SceneVars, render_rays
 
@@ -150,10 +160,12 @@ def create_train_state(
     n_images: int,
     scales_init: Optional[np.ndarray] = None,
     shifts_init: Optional[np.ndarray] = None,
+    grid: Optional[Ranks] = None,
 ) -> TrainState:
     """Models from ``seed`` (initialized on the CPU, so every device gets the
     same weights) moved to ``rc.device``, zero Adam moments, per-image
-    scale/shift."""
+    scale/shift. ``grid`` with a model axis: the NeRF params and their
+    moments keep this rank's rows (``parallel/mesh.py::shard_state``)."""
     device = torch.device(rc.device)
     gen = torch.Generator().manual_seed(seed)
     coarse = NeRF(rc.nerf_coarse, generator=gen).to(device)
@@ -171,6 +183,8 @@ def create_train_state(
     state = TrainState(coarse, fine, AdamState([], []), scales, shifts,
                        AdamState.zeros_like([scales, shifts]))
     state.opt = AdamState.zeros_like(state.nerf_params())
+    if grid is not None and grid.n_model > 1:
+        mesh.shard_state(state, grid)
     return state
 
 
@@ -266,9 +280,9 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
     """Total loss and the metrics dict (tensors) for one batch.
 
     Under ``ranks``, ``batch`` is this rank's block of the step's
-    ``tc.n_rand`` rays: the returned loss is scaled by 1/world (grads summed
-    over the ranks are then the whole batch's), and the metrics are this
-    rank's, to be averaged over the ranks."""
+    ``tc.n_rand`` rays: the returned loss is scaled by 1/n_data (grads summed
+    over the data group are then the whole batch's), and the metrics are
+    this rank's, to be averaged over the data group."""
     block = None if ranks is None else RayBlock(ranks.block(tc.n_rand), tc.n_rand)
     scene_vars = SceneVars(
         state.model_coarse, state.model_fine, scene.bb_center, scene.bb_scale,
@@ -304,7 +318,7 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
         metrics["img_loss0"] = img_loss0.detach()
     metrics["loss"] = loss.detach()
     if ranks is not None:
-        loss = loss / ranks.world
+        loss = loss / ranks.n_data
     return loss, metrics
 
 
@@ -312,8 +326,8 @@ def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: R
                   tc: TrainConfig, generator=None, cached_u=None, ranks: Optional[Ranks] = None):
     """(grads of the NeRF params, grad of scales, grad of shifts, metrics);
     a grad is None where the loss does not reach the tensor. Under ``ranks``
-    the grads are summed and the metrics averaged over the ranks, so every
-    rank returns the whole batch's."""
+    the grads are summed and the metrics averaged over the data group, so
+    every rank returns the whole batch's (of a sharded tensor, its rows)."""
     loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u, ranks)
     wrt = state.nerf_params() + [state.scales, state.shifts]
     grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
@@ -321,8 +335,16 @@ def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: R
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
         names = list(metrics)
         values = [metrics[k].reshape(1) for k in names]
-        ranks.sum_(grads + values)
-        metrics = {k: v[0] / ranks.world for k, v in zip(names, values)}
+        if ranks.n_model == 1:
+            ranks.sum_(grads + values)
+        else:
+            sharded = [dim is not None for dim in mesh.nerf_dims(state)] + [False, False]
+            ranks.sum_([g for g, s in zip(grads, sharded) if s] + values)
+            replicated = [g for g, s in zip(grads, sharded) if not s]
+            ranks.sum_(replicated, everywhere=True)
+            for g in replicated:
+                g.div_(ranks.n_model)
+        metrics = {k: v[0] / ranks.n_data for k, v in zip(names, values)}
     return grads[:-2], grads[-2], grads[-1], metrics
 
 
@@ -351,7 +373,10 @@ def make_train_step(rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: 
     """The train step: (state, scene, generator) -> metrics, with ``state``
     updated in place. ``generator`` lives on the scene's device and drives
     the batch, the jitter and the draws. ``ranks``: data-parallel over the
-    process group, each rank on its block of ``tc.n_rand / world`` rays."""
+    process group, each rank on its block of ``tc.n_rand / world`` rays; a
+    grid from ``parallel/dist.py::make_grid`` with a model axis also splits
+    the sharded layers over each data row (the state from
+    ``create_train_state(..., grid=...)``)."""
     rows = None if ranks is None else ranks.block(tc.n_rand)
 
     def step_fn(state: TrainState, scene: SceneTensors, generator: torch.Generator):
