@@ -289,8 +289,9 @@ TP_N_MODEL, TP_PLAIN_STEPS = 2, 1
 # seeded 468x624 depth map at focal
 # SPVCNN_FOCAL px, through refine_focal (5 channels, voxel 0.005) and
 # refine_shift (3 channels, voxel 0.01) at the input functions' 100,000-point
-# capacity. The card's logits (f32, TF32 off) against the CPU's to
-# SPVCNN_RTOL relative (atol SPVCNN_ATOL): both sum in f32 in other orders
+# capacity. The card's logits, each stage's output and the pooled features
+# (f32, TF32 off) against the CPU's to SPVCNN_RTOL of their largest entry
+# (the logits with atol SPVCNN_ATOL): both sum in f32 in other orders
 # (the products, and index_add_ in the voxel means and pooling, which the
 # card sums in no fixed order); the sites and kernel maps are exact on both.
 SPVCNN_FOCAL, SPVCNN_RTOL, SPVCNN_ATOL, SPVCNN_REPS = 577.9, 1e-4, 1e-6, 5
@@ -1410,18 +1411,9 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         backend = re.findall(r"multihost: rank \d+/\d+ on \S+, (?:nccl|gloo)", log.getvalue())
 
         a, b = one["dp1a"], one["dp1b"]
-        d_one, d_two = abs_diffs(b["params"], a["params"]), abs_diffs(two, a["params"])
-        scale = max(t.abs().max().item() for t in a["params"].values())
-        spread, err = d_one.median().item(), d_two.median().item()
-        param_tol = max(DP_SPREAD_RATIO * spread, DP_REL * scale)
-        loss_spread = abs(b["losses"][0] - a["losses"][0])
-        loss_err = abs(ranks[0]["losses"][0] - a["losses"][0])
-        loss_tol = max(DP_SPREAD_RATIO * loss_spread, DP_REL * abs(a["losses"][0]))
         grads_two = [torch.load(os.path.join(out, f"rank{r}_grads.pt")) for r in range(world)]
-        grad_spread = (b["grads"] - a["grads"]).abs().max().item()
-        grad_err = (grads_two[0] - a["grads"]).abs().max().item()
-        grad_scale = a["grads"].abs().max().item()
-        grad_tol = max(DP_SPREAD_RATIO * grad_spread, DP_REL * grad_scale)
+        held = witness_check(a, b, dict(losses=ranks[0]["losses"], grads=grads_two[0], params=two))
+        d_one, d_two = abs_diffs(b["params"], a["params"]), abs_diffs(two, a["params"])
 
         result = os.path.join("ckpt", "dp2", "test_images_scene", "metrics.txt")
         t0 = time.perf_counter()
@@ -1437,9 +1429,9 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         per_view = 2 * (-(-rays_per_rank // RENDER_CHUNK))
         checks = {
             f"{world} ranks": len(backend) == world,
-            "params within the 1-rank spread (median)": err <= param_tol,
-            "first loss within the 1-rank spread": loss_err <= loss_tol,
-            "first grads within the 1-rank spread": grad_err <= grad_tol,
+            "params within the 1-rank spread (median)": held["params_median"]["ok"],
+            "first loss within the 1-rank spread": held["first_loss"]["ok"],
+            "first grads within the 1-rank spread": held["first_grads"]["ok"],
             "ranks' first grads bit-equal": all(torch.equal(grads_two[0], g)
                                                 for g in grads_two[1:]),
             "ranks' params bit-equal": all(torch.equal(per_rank[0][k], r[k])
@@ -1456,22 +1448,26 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         }
         line("dp", world=world, backend=backend, steps=DP_STEPS, n_rand=1024,
              rays_per_rank=1024 // world,
-             params=dict(median_abs_err_2_vs_1=err, median_spread_1_vs_1=spread, tol=param_tol,
-                         max_abs_err_2_vs_1=d_two.max().item(),
-                         max_abs_spread_1_vs_1=d_one.max().item(),
+             params=dict(median_abs_err_2_vs_1=held["params_median"]["err"],
+                         median_spread_1_vs_1=held["params_median"]["spread"],
+                         tol=held["params_median"]["tol"],
+                         max_abs_err_2_vs_1=held["params_max"]["err"],
+                         max_abs_spread_1_vs_1=held["params_max"]["spread"],
                          share_equal_2_vs_1=(d_two == 0).double().mean().item(),
                          share_equal_1_vs_1=(d_one == 0).double().mean().item(),
                          share_over_1e_4_2_vs_1=(d_two > 1e-4).double().mean().item(),
                          share_over_1e_4_1_vs_1=(d_one > 1e-4).double().mean().item(),
-                         max_abs_param=scale),
+                         max_abs_param=max(t.abs().max().item() for t in a["params"].values())),
              losses=dict(two=ranks[0]["losses"], one_a=a["losses"], one_b=b["losses"],
-                         first_abs_err=loss_err, first_spread=loss_spread, first_tol=loss_tol,
+                         first_abs_err=held["first_loss"]["err"],
+                         first_spread=held["first_loss"]["spread"], first_tol=held["first_loss"]["tol"],
                          max_abs_err=max(abs(x - y) for x, y in zip(ranks[0]["losses"],
                                                                      a["losses"])),
                          max_spread=max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))),
-             first_grads=dict(n=a["grads"].numel(), max_abs_err_2_vs_1=grad_err,
-                              max_abs_spread_1_vs_1=grad_spread, max_abs_grad=grad_scale,
-                              tol=grad_tol),
+             first_grads=dict(n=a["grads"].numel(), max_abs_err_2_vs_1=held["first_grads"]["err"],
+                              max_abs_spread_1_vs_1=held["first_grads"]["spread"],
+                              max_abs_grad=a["grads"].abs().max().item(),
+                              tol=held["first_grads"]["tol"]),
              ms_per_step=dict(one_rank=[statistics.median(a["step_ms"]),
                                         statistics.median(b["step_ms"])],
                               per_rank=[statistics.median(r["step_ms"]) for r in ranks],
@@ -1572,10 +1568,10 @@ def tp_worker(out_dir: str, seed: int) -> int:
 
 
 def witness_check(a: dict, b: dict, got: dict) -> dict:
-    """``got`` (from ranks) held to two 1-rank runs ``a`` and ``b`` by the dp
-    phase's rule: the first loss and first grads within DP_SPREAD_RATIO times
-    the 1-rank spread or DP_REL of their magnitude, the params' median
-    distance likewise."""
+    """``got`` (from ranks) held to two 1-rank runs ``a`` and ``b``, the rule
+    of the dp and tp phases: the first loss and first grads within
+    DP_SPREAD_RATIO times the 1-rank spread or DP_REL of their magnitude, the
+    params' median distance likewise."""
     d_one, d_got = abs_diffs(b["params"], a["params"]), abs_diffs(got["params"], a["params"])
     scale = max(t.abs().max().item() for t in a["params"].values())
     out = {}
@@ -1732,11 +1728,36 @@ class SpvcnnProbe:
             p.stop()
 
 
+def spvcnn_on_cpu(x):
+    """A tensor or a SparseVoxels, on the CPU."""
+    if isinstance(x, spvcnn.SparseVoxels):
+        return x._replace(feats=x.feats.cpu(), coords=x.coords.cpu(), mask=x.mask.cpu())
+    return x.cpu()
+
+
+def spvcnn_tap_err(card, cpu) -> dict:
+    """A stage's output (SparseVoxels: the same sites and coordinates, the
+    features on its valid rows) or the pooled features on the card against
+    the CPU's, to SPVCNN_RTOL of their own largest |feature|, with no atol:
+    at seeded weights each stage's features are about a tenth of the one
+    before, so the logit, and an atol, would hardly see the last stages."""
+    sites = True
+    if isinstance(cpu, spvcnn.SparseVoxels):
+        sites = (card.stride == cpu.stride and torch.equal(card.mask, cpu.mask)
+                 and torch.equal(card.coords[cpu.mask], cpu.coords[cpu.mask]))
+        card, cpu = card.feats[cpu.mask], cpu.feats[cpu.mask]
+    err = (card - cpu).abs().max().item()
+    tol = SPVCNN_RTOL * cpu.abs().max().item()
+    return dict(shape=list(cpu.shape), abs_err=err, tol=tol, same_sites=sites,
+                ok=sites and err <= tol)
+
+
 def phase_spvcnn(seed: int) -> dict:
     """The SPVCNN classifier (prior/spvcnn.py) at full width on the card:
     refine_focal with a 5-channel model and refine_shift with a 3-channel
     one (seeded weights, cr=1.0, pres = vres) on a seeded 468x624 depth map,
-    on the card and on the CPU; their logits held within SPVCNN_RTOL; the
+    on the card and on the CPU; their logits, each stage's output and the
+    pooled features held within SPVCNN_RTOL (the sites exactly); the
     forward's ms (the kernel maps apart from the gathers and products in a
     synchronized pass), peak GB and the voxel sites at each stride."""
     t_phase = time.perf_counter()
@@ -1753,9 +1774,18 @@ def phase_spvcnn(seed: int) -> dict:
 
         def bound(model, dev):
             def apply(points):
-                with torch.no_grad():
-                    out = model(points.to(dev))
-                seen[dev].append((points, out.cpu()))
+                taps = {}
+                hooks = [getattr(model, f"stage{i}").register_forward_hook(
+                    lambda _m, _x, y, i=i: taps.__setitem__(f"stage{i}", y)) for i in range(1, 5)]
+                hooks.append(model.classifier.register_forward_pre_hook(
+                    lambda _m, x: taps.__setitem__("pooled", x[0])))
+                try:
+                    with torch.no_grad():
+                        out = model(points.to(dev))
+                finally:
+                    for h in hooks:
+                        h.remove()
+                seen[dev].append((points, out.cpu(), {k: spvcnn_on_cpu(v) for k, v in taps.items()}))
                 return out
             return apply
 
@@ -1767,10 +1797,12 @@ def phase_spvcnn(seed: int) -> dict:
             else:
                 values[dev] = spvcnn.refine_shift(depth, bound(model, dev), SPVCNN_FOCAL, u0, v0)
             secs[dev] = time.perf_counter() - t0
-        points, card_logit = seen["cuda"][0]
-        cpu_logit = seen["cpu"][0][1]
+        points, card_logit, card_taps = seen["cuda"][0]
+        cpu_logit, cpu_taps = seen["cpu"][0][1:]
         err = (card_logit - cpu_logit).abs().max().item()
         tol = SPVCNN_RTOL * cpu_logit.abs().max().item() + SPVCNN_ATOL
+        taps = {k: spvcnn_tap_err(card_taps[k], cpu_taps[k]) for k in cpu_taps}
+        del seen, card_taps, cpu_taps
         pts = points.to("cuda")
         with torch.no_grad():
             card_model(pts)  # warm-up
@@ -1788,6 +1820,7 @@ def phase_spvcnn(seed: int) -> dict:
                          capacity=points.mask.numel(), value_card=values["cuda"],
                          value_cpu=values["cpu"], logit_card=card_logit.item(),
                          logit_cpu=cpu_logit.item(), abs_err=err, tol=tol, ok=err <= tol,
+                         taps=taps,
                          forward_ms=ms, probed_pass_ms=probed_ms, kernel_map_ms=probe.map_ms,
                          gather_matmul_ms=probe.gemm_ms,
                          other_ms=probed_ms - probe.map_ms - probe.gemm_ms,
@@ -1797,6 +1830,8 @@ def phase_spvcnn(seed: int) -> dict:
         del card_model
         torch.cuda.empty_cache()
     checks = {f"{k} card logit within rtol of the CPU's": v["ok"] for k, v in res.items()}
+    checks.update({f"{k} card {t} within rtol of the CPU's": d["ok"]
+                   for k, v in res.items() for t, d in v["taps"].items()})
     checks["finite"] = all(math.isfinite(v["logit_card"]) for v in res.values())
     line("spvcnn", H=H, W=W, focal_px=SPVCNN_FOCAL, cr=1.0, rtol=SPVCNN_RTOL, **res,
          phase_s=time.perf_counter() - t_phase, checks=checks)
