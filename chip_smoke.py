@@ -7,15 +7,17 @@ Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
 at once), then prints one line per phase (with --k1-only the first two, for
 comparing K1 builds of two trees on one card):
 
-  device  card name and power limit (nvidia-smi), build time, K1's registers
-          and spills (ptxas) and its tensor-core instructions (cuobjdump
-          -sass: HMMA.16816.F32.BF16 and HMMA.1688.F32.TF32, none is a fault)
+  device  card name and power limit (nvidia-smi), build time, K1's registers,
+          spills and warnings (ptxas), its tile, cluster and ring stages, and
+          its tensor-core instructions (cuobjdump -sass: HGMMA, from wgmma, in
+          bf16 and tf32; none of either, or any HMMA, is a fault)
   k1      the fused PE + MLP kernel, through its wrapper, against its plain
           version at the main path's launch shapes (D=8, W=256, F=9): a train
           step's 65,536 coarse and 196,608 fine points and a render chunk's
           1,048,576 and 3,145,728, each in f32 and bf16, the weights' packing
           included; in bf16 also the plain version against itself with its
-          sums reordered, and both against the same function summed in f64
+          sums reordered, and both against the same function summed in f64;
+          the weight bytes each launch reads from L2
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
           exactly 0 and 1: exact against the plain lookup of the CDF summed
@@ -331,31 +333,43 @@ def phase_device() -> dict:
     build_s = time.perf_counter() - t0
     for name in _kernels.SOURCES:
         _kernels.load(name)
-    hmma = k1_tensor_core_instructions()
+    tc = k1_tensor_core_instructions()
+    ptxas = k1_ptxas()
     line("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=round(build_s, 3), build_s_per_source=per_source, k1_sass_hmma=hmma,
-         k1_ptxas=k1_ptxas())
-    if not all(hmma.values()):
-        raise RuntimeError(f"device: K1 has no tensor-core instruction of some kind: {hmma}")
-    return {"smi": smi, "hmma": hmma}
+         build_s=round(build_s, 3), build_s_per_source=per_source, k1_sass=tc,
+         k1_ptxas=ptxas, k1_geometry=fused_mlp.kernel_geometry())
+    if not (tc["HGMMA.F32.BF16"] and tc["HGMMA.F32.TF32"]) or tc["HMMA"]:
+        raise RuntimeError(f"device: K1's layers are not all on wgmma (HGMMA): {tc}")
+    return {"smi": smi, "sass": tc}
 
 
 def k1_tensor_core_instructions() -> dict:
-    """Counts K1's tensor-core instructions in the built library's SASS."""
+    """Counts K1's tensor-core instructions in the built library's SASS: the
+    warpgroup products (HGMMA, from wgmma) in bf16 and tf32, and the warp
+    products (HMMA, from mma.sync), of which there must be none: every
+    W-wide and W/2-wide layer runs on wgmma."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "/usr/local/cuda", "bin",
                                                      "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_kernels.library_path("fused_mlp"))],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    return {op: sass.count(op) for op in ("HMMA.16816.F32.BF16", "HMMA.1688.F32.TF32")}
+    ops = re.findall(r"\b(HGMMA|HMMA)\.(\S+)", sass)
+    shapes = sorted({f"{op}.{form}" for op, form in ops})
+    return {"HGMMA.F32.BF16": sum(op == "HGMMA" and "F32.BF16" in f for op, f in ops),
+            "HGMMA.F32.TF32": sum(op == "HGMMA" and "F32.TF32" in f for op, f in ops),
+            "HMMA": sum(op == "HMMA" for op, _ in ops), "forms": shapes}
 
 
 def k1_ptxas() -> dict:
-    """Registers, stack and spills of each K1 instantiation, from the build log."""
-    res, name = {}, None
+    """Registers, stack and spills of each K1 instantiation, from the build
+    log, and any warning ptxas gave (a setmaxnreg it ignored, wgmma products
+    it serialized). Raises if the log names no instantiation of the kernel."""
+    res, name, warnings = {}, None, []
     for text in (_kernels.BUILD / "fused_mlp.log").read_text().splitlines():
         m = re.search(r"fused_mlp_kernelI(13__nv_bfloat16|f)Li(\d+)E", text)
+        if "warning" in text.lower() or "Performance Loss" in text:
+            warnings.append(text.strip())
         if "Function properties for" in text and m:
             name = f"{'bf16' if m.group(1) != 'f' else 'f32'}_W{m.group(2)}"
             res[name] = {}
@@ -364,6 +378,10 @@ def k1_ptxas() -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", text)):
             res[name]["registers"] = int(m.group(1))
             name = None
+    want = {f"{t}_W{w}" for t in ("bf16", "f32") for w in (64, 128, 256)}
+    if set(res) != want or not all("registers" in r for r in res.values()):
+        raise RuntimeError(f"k1_ptxas: the build log names {sorted(res)}, expected {sorted(want)}")
+    res["warnings"] = warnings
     return res
 
 
@@ -427,7 +445,7 @@ def bf16_agrees(kernel: dict, reordered: dict, kernel_exact: dict, plain_exact: 
             >= plain_exact["share_within_tol"] - K1_BF16_SHARE_SLACK)
 
 
-def phase_k1(gen: torch.Generator, hmma: dict) -> dict:
+def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     """K1 through its wrapper, ``fused_nerf_apply``, at every shape the main
     path launches it with: a train step's coarse and fine passes and a full
     render chunk's, in f32 and bf16, each against the plain version. Bounds:
@@ -452,8 +470,16 @@ def phase_k1(gen: torch.Generator, hmma: dict) -> dict:
     with torch.no_grad():
         pack_ms = {name: cuda_ms(lambda: fused_mlp.pack_weights(weights, cfg, dt), 20)
                    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-        packed_bytes = {name: fused_mlp.pack_weights(weights, cfg, dt).nbytes
-                        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    # Bytes each launch reads from L2: every staged chunk once per tile of
+    # each cluster (the blocks of a cluster share one copy of it), the heads
+    # once per block's tile.
+    geo = fused_mlp.kernel_geometry()
+    l2_bytes = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        parts = fused_mlp.pack_layout(cfg, dt)
+        elem = torch.empty((), dtype=dt).element_size()
+        l2_bytes[name] = (sum(p.size for p in parts if p.staged) * elem,
+                          sum(p.size for p in parts if not p.staged) * elem)
     res = {}
     for key, n in launches.items():
         pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
@@ -490,9 +516,11 @@ def phase_k1(gen: torch.Generator, hmma: dict) -> dict:
                 share_within_tol=err["share_within_tol"], kernel_ms=ms, plain_ms=plain_ms,
                 bound_ms=max(ops_s, bytes_s) * 1e3,
                 bound_by="operations" if ops_s >= bytes_s else "bytes",
-                tflops=flops / ms / 1e9,
-                # every 128-point tile reads all packed weights from L2
-                l2_weight_bytes=-(-n // 128) * packed_bytes[dname])
+                tflops=flops / ms / 1e9)
+            tiles = -(-n // geo["tile"])
+            staged, heads = l2_bytes[dname]
+            entry["l2_weight_bytes"] = -(-tiles // geo["cluster"]) * staged + tiles * heads
+            entry["l2_weight_bytes_per_point"] = entry["l2_weight_bytes"] / n
             if dt == torch.float32:
                 entry["fma_bound_ms"] = flops / PEAK_F32 * 1e3
             res[f"{key}_{dname}"] = entry
@@ -501,7 +529,7 @@ def phase_k1(gen: torch.Generator, hmma: dict) -> dict:
     line("k1", D=nc.D, W=nc.W, F=rc.embed_pos.num_freqs, mflop_per_point=flop_per_point / 1e6,
          tol=dict(f32=K1_TOL, bf16=dict(point=K1_TOL, share_slack=K1_BF16_SHARE_SLACK,
                                         max_ratio=K1_BF16_MAX_RATIO, median=K1_BF16_MEDIAN)),
-         sass_hmma=hmma, pack_ms=pack_ms, **res)
+         sass=sass, geometry=geo, pack_ms=pack_ms, **res)
     bad = [k for k, r in res.items() if not r["ok"]]
     if bad:
         raise RuntimeError(f"k1: kernel disagrees with its plain version at {bad}")
@@ -2642,7 +2670,7 @@ def main() -> int:
     if args.prior_only:
         phase_prior_paths(args.seed)
         return 0
-    k1 = phase_k1(gen, dev["hmma"])
+    k1 = phase_k1(gen, dev["sass"])
     if args.k1_only:
         return 0
     k2 = phase_k2(gen)

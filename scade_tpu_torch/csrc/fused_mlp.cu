@@ -9,45 +9,74 @@
 //   out = [W_rgb hv + b_rgb, softplus(10 alpha) / 10]            (N, 4)
 // Only the 6 input floats and 4 output floats of a point touch device memory.
 //
-// Bound: operations. A point costs 587,264 multiply-adds at D=8, W=256, F=9
-// (1.17 MFLOP), against 40 bytes of input and output, far above the card's
-// ridge point. Every layer of width W runs on the tensor cores with the
-// warp-level mma.sync:
-//  - bf16 mode: m16n8k16 bf16 x bf16 -> f32. Operands are rounded to bf16
+// Bound: operations. At D=8, W=256, F=9 a point costs 587,264 multiply-adds
+// (1.17 MFLOP) against 40 bytes of input and output, far above the card's
+// ridge point; padded to whole chunks the tensor cores do 598,016 of them in
+// bf16 and 3 x 590,848 in 3xTF32. Every W-wide and W/2-wide layer runs on the
+// tensor cores with the warpgroup product wgmma.mma_async (m64n64, or m64n32
+// for the view layer at W=64), A (the activations) from registers, B (the
+// weights) from shared memory:
+//  - bf16 mode: k16 bf16 x bf16 -> f32. Operands are rounded to bf16
 //    (activations where they are stored, weights when they are packed), sums
 //    are f32, and the f32 bias is added after the sum: the rounding of the
 //    Pallas kernel. The tensor cores truncate as they accumulate, so each
-//    staged chunk (32 deep) is summed apart and added to the running f32 sum
-//    with a rounded add.
+//    64-deep chunk is summed apart (four k16 products into a fresh sum) and
+//    added to the running f32 sum with a rounded add. Summed straight into
+//    the running sums, 96.2% of the points of a render chunk stayed within
+//    1e-4 of the plain version against 97.4% for the plain version with its
+//    sums reordered; with the 64-deep groups 97.4%, with 32-deep ones 97.9%
+//    at 1.3x the time (H100, tools/k1_variants.py; PERF.md).
 //  - f32 mode, "3xTF32": each f32 operand x is split into hi = rna_tf32(x)
 //    and lo = rna_tf32(x - hi), and a product is summed as lo*hi + hi*lo +
-//    hi*hi with m16n8k8 tf32 -> f32. The dropped lo*lo term is ~2^-22
-//    relative, so the result is f32-accurate at 3x the TF32 work. The
-//    tensor cores truncate as they accumulate, so each depth of 8 is summed
-//    apart and added to the running f32 sum with a rounded add.
+//    hi*hi with k8 tf32 -> f32. The dropped lo*lo term is ~2^-22 relative, so
+//    the result is f32-accurate at 3x the TF32 work. Each depth of 8 (the
+//    three products) is summed apart and added with a rounded add. The
+//    activations are split in registers; the weights' hi and lo halves come
+//    packed (pack_weights), since the tensor cores truncate an f32 that is
+//    fed to them as it is.
 // The alpha head (1 output), the rgb head (3), the softplus and the PE stay
 // on the CUDA cores.
 //
 // Design:
-//  - One block of 256 threads (8 warps) owns a tile of 128 points for all
-//    D+4 layers. Its activations (128 x W), embedding (128 x 64) and dirs
-//    stay in shared memory; the warps sit 2 x 4, each computing a 64 x W/4
-//    slice of a layer's output in registers (128 f32 sums a thread at W=256).
-//  - Weights come packed by ops/fused_mlp.py::pack_weights, one row-major
-//    (out, K) matrix per part with K padded to a product depth and every row
-//    32-byte aligned; the skip layer is split into its emb and h parts and
-//    the view layer into its feature and dirs parts. Each block streams the
-//    parts from L2 in chunks of 64 bytes of every row (32 bf16 or 16 f32
-//    columns) with cp.async, into a 2-stage ring, one chunk ahead of the
-//    products; the first chunk of the next part is fetched during the last
-//    chunk of the current one, across the epilogue. Every tile rereads all
-//    weights (1.18 MB bf16, 2.36 MB f32 at W=256): the tile is as tall as
-//    shared memory allows (f32 mode takes 217 KB) to keep that L2 traffic
-//    under the tensor cores' time.
-//  - Row strides are padded (+16 bytes for ldmatrix, +4 words for the tf32
-//    loads) so that a warp's fragment reads hit 32 different banks.
-//  - The ragged last tile is masked on load and store, never padded.
-//  - sinf/cosf with full range reduction: arguments reach pi 2^(F-1) |x|.
+//  - A block is 3 warpgroups: two consumers, each owning 64 points of a
+//    128-point tile for all D+4 layers, and one producer. Every warp of a
+//    consumer reads and writes only its own 16 rows of the activations
+//    (128 x W), embedding (128 x 64) and dirs in shared memory, so the
+//    consumers never wait on each other; they meet only at the weights.
+//    setmaxnreg gives each consumer thread 232 registers and the producer
+//    40: 64 x 256 f32 sums take 128 of them, the two fresh sums below 64.
+//  - The weights stream through a ring of STAGES chunks in shared memory.
+//    pack_weights writes every chunk (64 bf16 or 8 f32 of K for every row of
+//    a part; f32 as hi then lo) in the exact image that the wgmma B
+//    descriptor reads: 8-row x 16-byte core matrices, 128 contiguous bytes
+//    each, K-adjacent ones 128 bytes apart (LBO), row-adjacent ones one
+//    chunk row of core matrices apart (SBO), no swizzle. So one thread of the
+//    producer copies a chunk with one cp.async.bulk (the TMA engine, no
+//    tensor map) that completes on the stage's "full" mbarrier; every
+//    consumer warp arrives on its "empty" mbarrier when the products that
+//    read it are done. The producer runs ahead across layers and tiles.
+//  - Every block reads every chunk from L2: 9,364 bytes a point in bf16 and
+//    36,968 in f32 (hi and lo) at D=8, W=256, F=9. With CLUSTER = 2 a pair
+//    of blocks on neighbouring SMs shares each chunk: each producer copies
+//    half of it with .multicast::cluster into both blocks' rings, which
+//    halves those bytes. On an H100 that made K1 2% slower in f32 and 3-7%
+//    in bf16 at the render shapes (tools/k1_variants.py; PERF.md): L2 is
+//    not what bounds K1 at the rate it reaches, so CLUSTER is 1.
+//  - Persistent blocks: as many blocks as fit on the card walk the tiles,
+//    so the next tile's first chunks load while the current one finishes.
+//  - Within a layer a consumer walks its output columns in slabs of 64: each
+//    slab's products go to one of two fresh sums that alternate, so the
+//    rounded add of slab s-1 overlaps the products of slab s
+//    (wgmma.wait_group 1).
+//  - The PE takes two lanes a row: all loads first, then one sincosf per
+//    (coordinate, frequency). bf16 activations are stored with stmatrix.
+//  - Shared memory a block at W=256, f32: 133,120 (activations) + 34,816
+//    (embedding) + 6,144 (dirs) + 3 x 16,384 (ring); bf16: 67,584 + 18,432 +
+//    6,144 + 4 x 32,768; 223,232 bytes either way, and the barriers.
+//    Registers a block: 384 threads x 168 = 64,512.
+//  - The ragged last tile is masked on load and store, never padded: its
+//    rows past n encode x = 0 and are not stored.
+//  - sincosf with full range reduction: arguments reach pi 2^(F-1) |x|.
 //    Built without --use_fast_math.
 
 #include <cuda_bf16.h>
@@ -56,43 +85,55 @@
 
 namespace {
 
-constexpr int TILE = 128;           // points per block
-constexpr int THREADS = 256;        // 8 warps, 2 (rows) x 4 (columns)
-constexpr int MAX_D = 16;           // trunk depth supported
+constexpr int ROWS = 64;                     // points of a consumer warpgroup
+constexpr int CONSUMERS = 2;                 // consumer warpgroups a block
+constexpr int TILE = ROWS * CONSUMERS;       // points a block takes at a time
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
+constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int PRODUCER_REGS = 40;            //   = 384 x 168, the launch's registers
+constexpr int CLUSTER = 1;                   // blocks sharing each weight copy (see above)
+constexpr int MAX_D = 16;                    // trunk depth supported
 constexpr int MAX_PARTS = 2 * MAX_D + 4;
-constexpr int EMB_COLS = 64;        // E = 3 + 6F <= 64, zero-filled past E
-constexpr int CHUNK_BYTES = 64;     // bytes of every weight row per staged chunk
-constexpr int STAGE_LD = 80;        // bytes between staged rows (64 + 16 against bank conflicts)
+constexpr int EMB_COLS = 64;                 // E = 3 + 6F <= 64, zero-filled past E
+constexpr int SLAB = 64;                     // output columns of one group of products
+constexpr int DEPTH_BYTES = 32;              // K bytes of one wgmma (k16 bf16, k8 tf32)
 
 typedef __nv_bfloat16 bf16;
 
 struct Params {
-  const void* w;            // packed weights (bf16 or f32)
-  int off[MAX_PARTS];       // element offset, rows and padded K of each part,
-  int rows[MAX_PARTS];      // in pack_layout's order
+  const char* w;              // packed weights
+  int off[MAX_PARTS];         // element offset, rows and padded K of each part,
+  int rows[MAX_PARTS];        // in pack_layout's order
   int kp[MAX_PARTS];
-  int next[MAX_PARTS];      // the next part that is a product (not a head), or -1
   const float* b[MAX_D + 4];  // f32 biases: trunk, alpha, feature, views, rgb
   int D;
   int E;
   int skip_mask;
+  int n_parts;
 };
 
 template <typename T>
 struct Mode;
 template <>
 struct Mode<bf16> {
-  static constexpr int KSTEP = 16;  // m16n8k16
-  static constexpr int PAD = 8;     // elements of row padding (16 bytes)
+  static constexpr int KSTEP = 16;   // k of one wgmma
+  static constexpr int DEPTHS = 4;   // wgmma depths a chunk: the rounded-add group is 64 deep
+  static constexpr int COPIES = 1;   // the weights as they are
+  static constexpr int AREGS = DEPTHS;  // A fragments a chunk: one a depth
+  static constexpr int PAD = 8;      // elements of row padding (16 bytes)
+  static constexpr int STAGES = 4;
 };
 template <>
 struct Mode<float> {
-  static constexpr int KSTEP = 8;   // m16n8k8
+  static constexpr int KSTEP = 8;
+  static constexpr int DEPTHS = 1;   // the group is one depth of 8
+  static constexpr int COPIES = 2;   // hi, then lo
+  static constexpr int AREGS = 2;    // the depth's hi and lo
   static constexpr int PAD = 4;
+  static constexpr int STAGES = 3;
 };
 
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -100,9 +141,6 @@ __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -111,38 +149,190 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+// ---- mbarriers, bulk copies, clusters --------------------------------------
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3, unsigned addr) {
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Arrives on the barrier at the same shared-memory offset in block `rank` of
+// the cluster (this block's own barrier when rank is its own). The default
+// .release.cta order suffices: what the arrival releases is this warp's
+// finished reads of a stage, which the next bulk copy overwrites. (With
+// .release.cluster every arrival took a MEMBAR.ALL.GPU.)
+__device__ __forceinline__ void mbar_arrive(unsigned bar, unsigned rank, unsigned own) {
+  if (rank == own) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .b32 remote;\n"
+        "mapa.shared::cluster.u32 remote, %0, %1;\n"
+        "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+        "}\n" ::"r"(bar),
+        "r"(rank)
+        : "memory");
+  }
+}
+
+// `bytes` from global `src` into shared `dst` of every block of the cluster
+// (the same offset in each), completing on `bar` in each.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
+  if constexpr (CLUSTER == 1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+  } else {
+    const unsigned short mask = (1u << CLUSTER) - 1;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// ---- warpgroup products ------------------------------------------------------
+
+// B descriptor of a K-major, unswizzled operand: core matrices of 8 rows x 16
+// bytes (128 contiguous bytes), K-adjacent ones 128 bytes apart (leading
+// byte offset), row-adjacent ones `sbo` bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t desc_b(unsigned addr, int sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties registers that an in-flight wgmma reads or writes to this point of the
+// program, so that the compiler neither reads nor reuses them earlier.
+template <int R>
+__device__ __forceinline__ void keep(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void keep(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define D8(i)                                                                                  \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]),   \
+      "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+// d (+)= A (64 x 16, registers) @ B (16 x N, shared memory); sums f32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+// d (+)= A (64 x 8, registers, tf32) @ B (8 x N, shared memory, tf32); sums f32.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : D8(0), D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+#undef D8
+
+__device__ __forceinline__ void stmatrix_x4(unsigned addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x = hi + lo + O(2^-22 x), both tf32 and rounded to nearest. The explicit
@@ -153,343 +343,441 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
-// The ring of staged weight chunks: two stages of up to W rows x STAGE_LD
-// bytes. `cur` is the stage that holds (or receives) the next chunk to use.
+// The A fragments of one chunk for this warp's 16 rows: a[0..depths) the
+// depths (bf16), or a[0] hi and a[1] lo of the one depth (f32). The fragment
+// of a warp is that of mma.m16n8k16 (bf16) / m16n8k8 (tf32).
+template <int R>
+__device__ __forceinline__ void load_a(uint32_t (&a)[R][4], const bf16* A, int lda, int k0,
+                                       int cols) {
+  const int lane = threadIdx.x & 31;
+  const unsigned addr = smem_u32(A + (lane & 15) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+  for (int d = 0; d < R; ++d) {
+    if (k0 + 16 * d < cols) {
+      ldmatrix_x4(a[d], addr + 32 * d);
+    } else {  // past the buffer's columns (the dirs' 16): the part's zero padding
+      a[d][0] = a[d][1] = a[d][2] = a[d][3] = 0;
+    }
+  }
+}
+template <int R>
+__device__ __forceinline__ void load_a(uint32_t (&a)[R][4], const float* A, int lda, int k0,
+                                       int) {
+  const int lane = threadIdx.x & 31;
+  const float* ap = A + (lane >> 2) * lda + k0 + (lane & 3);
+  split_tf32(ap[0], a[0][0], a[1][0]);            // (g, t)
+  split_tf32(ap[8 * lda], a[0][1], a[1][1]);      // (g + 8, t)
+  split_tf32(ap[4], a[0][2], a[1][2]);            // (g, t + 4)
+  split_tf32(ap[8 * lda + 4], a[0][3], a[1][3]);  // (g + 8, t + 4)
+}
+
+// One group of products into the fresh sum d: the chunk at shared address
+// `st` (`rows` rows), its columns from `col` on.
+template <int SN, int R>
+__device__ __forceinline__ void group(float (&d)[SN / 2], const uint32_t (&a)[R][4], unsigned st,
+                                      int rows, int col, bf16*) {
+  constexpr int SBO = R * 2 * 128;  // the core matrices of 8 rows, all depths
+  const unsigned base = st + (col / 8) * SBO;
+#pragma unroll
+  for (int i = 0; i < R; ++i) wgmma_bf16(d, a[i], desc_b(base + 256 * i, SBO), i > 0);
+}
+template <int SN, int R>
+__device__ __forceinline__ void group(float (&d)[SN / 2], const uint32_t (&a)[R][4], unsigned st,
+                                      int rows, int col, float*) {
+  const unsigned hi = st + (col / 8) * 256;
+  const unsigned lo = hi + rows * DEPTH_BYTES;
+  wgmma_tf32(d, a[1], desc_b(hi, 256), 0);  // lo * hi
+  wgmma_tf32(d, a[0], desc_b(lo, 256), 1);  // hi * lo
+  wgmma_tf32(d, a[0], desc_b(hi, 256), 1);  // hi * hi
+}
+
+// ---- the ring ----------------------------------------------------------------
+
+// A stage's bars: full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s).
 struct Ring {
-  char* buf;
+  unsigned buf;    // shared address of stage 0
+  unsigned bars;
   int stage_bytes;
-  int cur;
+  int stages;
+  int stage;
+  unsigned phase;
+  __device__ __forceinline__ unsigned full() const { return bars + 8 * stage; }
+  __device__ __forceinline__ unsigned empty() const { return bars + 8 * (stages + stage); }
+  __device__ __forceinline__ unsigned data() const { return buf + stage * stage_bytes; }
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) stage = 0, phase ^= 1;
+  }
 };
 
-// Issues (does not commit) the cp.async copies of chunk c of part i into dst.
+// Bytes of a chunk of a product part: `copies` x rows x the chunk's depth.
 template <typename T>
-__device__ __forceinline__ void stage_chunk(char* dst, const Params& p, int i, int c) {
-  constexpr int KC = CHUNK_BYTES / sizeof(T);
-  const int kp = p.kp[i];
-  const int k0 = c * KC;
-  // 4 segments of 16 bytes a row, or 2 for the half chunk that ends a part
-  const int seg_log = (kp - k0 >= KC) ? 2 : 1;
-  const char* src = reinterpret_cast<const char*>(static_cast<const T*>(p.w) + p.off[i] + k0);
-  const int row_bytes = kp * (int)sizeof(T);
-  const int total = p.rows[i] << seg_log;
-  for (int e = threadIdx.x; e < total; e += THREADS) {
-    const int r = e >> seg_log;
-    const int s = e & ((1 << seg_log) - 1);
-    cp_async16(dst + r * STAGE_LD + s * 16, src + (size_t)r * row_bytes + s * 16);
-  }
+__device__ __forceinline__ int chunk_bytes(int rows) {
+  return Mode<T>::COPIES * rows * Mode<T>::KSTEP * Mode<T>::DEPTHS * (int)sizeof(T);
 }
 
-// One staged chunk (1 or 2 product depths) into the warp's 64 x 8NT sums,
-// A from the activation tile at column k0, B from the staged rows. The
-// tensor cores truncate as they accumulate. Summed straight into acc, that
-// bias flipped activations' bf16 roundings often enough that 3.8% of points
-// ended over 1e-4 from the plain version, against 2.6% for the plain version
-// with its sums reordered (H100). So each chunk's products go to a fresh
-// sum, which a rounded f32 add takes into acc (2.1% of points over 1e-4).
-template <int NT>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][NT][4], const bf16* A, int lda, int k0,
-                                          const char* st, int ksteps) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  // ldmatrix.x4 of A: lanes 0-15 address rows 0-15 at k, lanes 16-31 at k+8
-  const unsigned a_addr = smem_u32(A + (wm * 64 + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
-  // ldmatrix.x4 of B from W[n][k]: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-  const unsigned b_addr = smem_u32(st + (wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3)) * STAGE_LD +
-                                   ((lane >> 3) & 1) * 16);
-  uint32_t b[2][NT][2];
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    if (ks >= ksteps) break;
-#pragma unroll
-    for (int j = 0; j + 1 < NT; j += 2) {
-      ldmatrix_x4(b[ks][j][0], b[ks][j][1], b[ks][j + 1][0], b[ks][j + 1][1],
-                  b_addr + j * 8 * STAGE_LD + ks * 32);
-    }
-    if constexpr (NT & 1) {
-      ldmatrix_x2(b[ks][NT - 1][0], b[ks][NT - 1][1], b_addr + (NT - 1) * 8 * STAGE_LD + ks * 32);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      if (ks >= ksteps) break;
-      ldmatrix_x4(a[ks][0], a[ks][1], a[ks][2], a[ks][3],
-                  a_addr + (i * 16 * lda + ks * 16) * (int)sizeof(bf16));
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(part, a[0], b[0][j][0], b[0][j][1]);
-      if (ksteps > 1) mma_bf16(part, a[1], b[1][j][0], b[1][j][1]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
-    }
-  }
+__device__ __forceinline__ bool is_head(const Params& p, int i) {
+  return p.rows[i] < 8;  // alpha (1 row) and rgb (3)
 }
 
-template <int NT>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][NT][4], const float* A, int lda, int k0,
-                                          const char* st, int ksteps) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-  // m16n8k8 tf32 fragments: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];
-  // b = W[n=g][k=t], W[g][t+4]
-  const float* a_ptr = A + (wm * 64 + g) * lda + k0 + t;
-  const float* b_ptr = reinterpret_cast<const float*>(st + (wn * NT * 8 + g) * STAGE_LD) + t;
-  constexpr int LDS = STAGE_LD / 4;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    if (ks >= ksteps) break;
-    // A split once per depth for the four m-tiles, B one n-tile at a time:
-    // 128 sums + 32 + 4 registers stay under the 255 a thread may hold
-    uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* ap = a_ptr + i * 16 * lda + ks * 8;
-      split_tf32(ap[0], ah[i][0], al[i][0]);
-      split_tf32(ap[8 * lda], ah[i][1], al[i][1]);
-      split_tf32(ap[4], ah[i][2], al[i][2]);
-      split_tf32(ap[8 * lda + 4], ah[i][3], al[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bh0, bh1, bl0, bl1;
-      split_tf32(b_ptr[j * 8 * LDS + ks * 8], bh0, bl0);
-      split_tf32(b_ptr[j * 8 * LDS + ks * 8 + 4], bh1, bl1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // the tensor cores truncate as they accumulate: summed straight into
-        // acc, that bias grows with K (5e-5 at the output, W=256). So each
-        // depth's three products go to a fresh sum, added with a rounded add.
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_tf32(part, al[i], bh0, bh1);
-        mma_tf32(part, ah[i], bl0, bl1);
-        mma_tf32(part, ah[i], bh0, bh1);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
+// One thread: every chunk of every product part, tile after tile, each half
+// copied by one block of the cluster into both. Then it waits until every
+// consumer of the cluster has released every stage, so that no arrival on
+// this block's barriers is still on its way when the block exits.
+template <typename T>
+__device__ void produce(const Params& p, Ring ring, int tiles) {
+  const unsigned rank = cluster_rank();
+  for (int t = 0; t < tiles; ++t) {
+    for (int i = 0; i < p.n_parts; ++i) {
+      if (is_head(p, i)) continue;
+      const char* src = p.w + (size_t)p.off[i] * sizeof(T);
+      constexpr int CK = Mode<T>::KSTEP * Mode<T>::DEPTHS;
+      const int bytes = chunk_bytes<T>(p.rows[i]);
+      for (int c = 0; c < p.kp[i] / CK; ++c) {
+        const int half = bytes / CLUSTER;
+        mbar_wait(ring.empty(), ring.phase ^ 1);
+        mbar_expect_tx(ring.full(), bytes);
+        bulk_copy(ring.data() + rank * half, src + rank * half, half, ring.full());
+        src += bytes;
+        ring.advance();
       }
     }
   }
-}
-
-// acc += A[:, 0:kp] @ part_i^T over the warp's slice. On entry chunk 0 of part
-// i is in flight into ring.cur (its group committed); on exit chunk 0 of
-// part next[i], if any, is. Every thread passes a barrier after its last read
-// of A and of the ring, so the caller may overwrite A at once.
-template <typename T, int NT>
-__device__ __forceinline__ void gemm(float (&acc)[4][NT][4], const T* A, int lda, const Params& p,
-                                     int i, Ring& ring) {
-  constexpr int KC = CHUNK_BYTES / sizeof(T);
-  const int kp = p.kp[i];
-  const int nchunks = (kp + KC - 1) / KC;
-  for (int c = 0; c < nchunks; ++c) {
-    char* other = ring.buf + (ring.cur ^ 1) * ring.stage_bytes;
-    if (c + 1 < nchunks) {
-      stage_chunk<T>(other, p, i, c + 1);
-    } else if (p.next[i] >= 0) {
-      stage_chunk<T>(other, p, p.next[i], 0);
-    }
-    cp_async_commit();
-    cp_async_wait_1();  // chunk c has landed, for this thread's copies
-    __syncthreads();    // ... and for everyone's
-    mma_chunk<NT>(acc, A, lda, c * KC, ring.buf + ring.cur * ring.stage_bytes,
-                  min(KC, kp - c * KC) / Mode<T>::KSTEP);
-    __syncthreads();    // the stage is free to refill, A free to overwrite
-    ring.cur ^= 1;
+  for (int s = 0; s < ring.stages; ++s) {
+    mbar_wait(ring.empty(), ring.phase ^ 1);
+    ring.advance();
   }
 }
 
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[4][NT][4]) {
+// acc (64 x NOUT of this warpgroup) += A[:, 0:kp] @ part^T, chunk by chunk
+// from the ring. A points at this warp's first row; its buffer has `cols`
+// columns, zeros past them.
+template <typename T, int NOUT>
+__device__ __forceinline__ void gemm(float (&acc)[NOUT / 2], const T* A, int lda, int cols,
+                                     int rows, int kp, Ring& ring) {
+  constexpr int SN = NOUT < SLAB ? NOUT : SLAB;
+  constexpr int NS = NOUT / SN;
+  constexpr int CK = Mode<T>::KSTEP * Mode<T>::DEPTHS;
+  const int lane = threadIdx.x & 31;
+  const unsigned own = cluster_rank();
+  const int nch = kp / CK;
+  float fresh[2][SN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int q = 0; q < SN / 2; ++q) fresh[h][q] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    uint32_t a[Mode<T>::AREGS][4];
+    load_a(a, A, lda, c * CK, cols);
+    mbar_wait(ring.full(), ring.phase);
+    const unsigned st = ring.data();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    for (int s = 0; s < NS; ++s) {
+      wg_fence();
+      group<SN>(fresh[s & 1], a, st, rows, s * SN, (T*)nullptr);
+      wg_commit();
+      if (s > 0) {
+        // the products of slab s run while slab s-1's fresh sum is added
+        wg_wait<1>();
+        keep(fresh[(s - 1) & 1]);
+#pragma unroll
+        for (int q = 0; q < SN / 2; ++q) acc[(s - 1) * (SN / 2) + q] += fresh[(s - 1) & 1][q];
+      }
+    }
+    wg_wait<0>();
+    keep(fresh[(NS - 1) & 1]);
+#pragma unroll
+    for (int r = 0; r < Mode<T>::AREGS; ++r) keep(a[r]);
+#pragma unroll
+    for (int q = 0; q < SN / 2; ++q) acc[(NS - 1) * (SN / 2) + q] += fresh[(NS - 1) & 1][q];
+    __syncwarp();
+    if (lane < CLUSTER) mbar_arrive(ring.empty(), lane, own);
+    ring.advance();
+  }
 }
 
-// dst[row][col] = (relu)(acc + bias) in the activation type, from the mma
-// accumulator layout: c0, c1 at (g, 2t..2t+1), c2, c3 at (g + 8, 2t..2t+1).
-template <typename T, int NT>
-__device__ __forceinline__ void epilogue(const float (&acc)[4][NT][4],
+template <int R>
+__device__ __forceinline__ void zero(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+}
+
+// dst[row][col] = (relu)(acc + bias) in the activation type, for this warp's
+// 16 rows, from the wgmma accumulator layout: acc[4j], acc[4j+1] at (g,
+// 8j+2t..8j+2t+1), acc[4j+2], acc[4j+3] at (g + 8, the same columns).
+template <typename T, int NOUT>
+__device__ __forceinline__ void epilogue(const float (&acc)[NOUT / 2],
                                          const float* __restrict__ bias, T* dst, int ldd,
                                          bool relu) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
+  uint32_t part[4];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = wn * NT * 8 + j * 8 + 2 * t;
-    const float b0 = __ldg(&bias[col]), b1 = __ldg(&bias[col + 1]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = wm * 64 + i * 16 + g;
-      float v0 = acc[i][j][0] + b0, v1 = acc[i][j][1] + b1;
-      float v2 = acc[i][j][2] + b0, v3 = acc[i][j][3] + b1;
-      if (relu) {
-        v0 = fmaxf(v0, 0.f);
-        v1 = fmaxf(v1, 0.f);
-        v2 = fmaxf(v2, 0.f);
-        v3 = fmaxf(v3, 0.f);
+  for (int j = 0; j < NOUT / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+    const float b0 = bb.x, b1 = bb.y;
+    float v0 = acc[4 * j] + b0, v1 = acc[4 * j + 1] + b1;
+    float v2 = acc[4 * j + 2] + b0, v3 = acc[4 * j + 3] + b1;
+    if (relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    if constexpr (sizeof(T) == 2) {
+      // stmatrix stores the warp's 16 x 16 block of columns 8j' .. 8j'+15
+      // (j' = j - 1, j odd) as four 8 x 8 matrices: rows 0-7 and 8-15 of
+      // each 8 columns; lane l gives the address of row l % 8 of matrix l / 8
+      part[(j & 1) * 2] = bf16x2(v0, v1);
+      part[(j & 1) * 2 + 1] = bf16x2(v2, v3);
+      if (j & 1) {
+        const int m = lane >> 3;
+        const unsigned addr =
+            smem_u32(dst + ((m & 1) * 8 + (lane & 7)) * ldd + (j - 1 + (m >> 1)) * 8);
+        stmatrix_x4(addr, part);
       }
-      store2(dst + row * ldd + col, v0, v1);
-      store2(dst + (row + 8) * ldd + col, v2, v3);
+    } else {
+      store2(dst + g * ldd + col, v0, v1);
+      store2(dst + (g + 8) * ldd + col, v2, v3);
     }
   }
+  __syncwarp();
 }
 
-// A head with NOUT outputs over K inputs on the CUDA cores: two threads per
-// row, each summing every other k, then one shuffle. dst[r * 4 + o].
+// 8 activations or weights from 16 aligned bytes (bf16), or 4 (f32), as f32.
+__device__ __forceinline__ void unpack16(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const float* p, float (&v)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+}
+
+// A head with NOUT outputs over K inputs on the CUDA cores for this warp's 16
+// rows: two lanes a row, each summing one half of k in 16-byte pieces, then
+// one shuffle. Lane 2r holds row r's sums.
 template <int NOUT, typename T>
 __device__ __forceinline__ void head(const T* act, int lda, int K, const T* __restrict__ w,
-                                     const float* __restrict__ bias, float* dst) {
-  const int r = threadIdx.x >> 1;
-  const int q = threadIdx.x & 1;
-  float s[NOUT];
+                                     const float* __restrict__ bias, float (&s)[NOUT]) {
+  constexpr int PIECE = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 1, k0 = (lane & 1) * (K / 2);
 #pragma unroll
   for (int o = 0; o < NOUT; ++o) s[o] = 0.f;
-  for (int k = q; k < K; k += 2) {
-    const float a = to_f(act[r * lda + k]);
+#pragma unroll 4
+  for (int k = k0; k < k0 + K / 2; k += PIECE) {
+    float a[8], b[8];
+    unpack16(act + r * lda + k, a);
 #pragma unroll
-    for (int o = 0; o < NOUT; ++o) s[o] = fmaf(a, to_f(w[o * K + k]), s[o]);
+    for (int o = 0; o < NOUT; ++o) {
+      unpack16(w + o * K + k, b);
+#pragma unroll
+      for (int e = 0; e < PIECE; ++e) s[o] = fmaf(a[e], b[e], s[o]);
+    }
   }
 #pragma unroll
-  for (int o = 0; o < NOUT; ++o) s[o] += __shfl_xor_sync(0xffffffffu, s[o], 1);
-  if (q == 0) {
-#pragma unroll
-    for (int o = 0; o < NOUT; ++o) dst[r * 4 + o] = s[o] + __ldg(&bias[o]);
+  for (int o = 0; o < NOUT; ++o) {
+    s[o] += __shfl_xor_sync(0xffffffffu, s[o], 1);
+    s[o] += __ldg(&bias[o]);
   }
 }
 
 template <typename T, int W>
 struct Smem {
-  static constexpr int LDA = W + Mode<T>::PAD;           // activations
-  static constexpr int LDE = EMB_COLS + Mode<T>::PAD;    // embedding
+  static constexpr int LDA = W + Mode<T>::PAD;               // activations
+  static constexpr int LDE = EMB_COLS + Mode<T>::PAD;        // embedding
   static constexpr int LDD = Mode<T>::KSTEP + Mode<T>::PAD;  // dirs, zero past 3
-  static constexpr int STAGE_BYTES = W * STAGE_LD;
-  static constexpr size_t BYTES = (size_t)TILE * (LDA + LDE + LDD) * sizeof(T) +
-                                  2 * (size_t)STAGE_BYTES + TILE * 4 * sizeof(float);
+  static constexpr int STAGE_BYTES =
+      W * DEPTH_BYTES * Mode<T>::DEPTHS * Mode<T>::COPIES;   // the largest chunk
+  static constexpr int ACT = 0;
+  static constexpr int EMB = ACT + TILE * LDA * (int)sizeof(T);
+  static constexpr int DIRS = EMB + TILE * LDE * (int)sizeof(T);
+  static constexpr int RING = (DIRS + TILE * LDD * (int)sizeof(T) + 127) / 128 * 128;
+  static constexpr int BARS = RING + Mode<T>::STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BARS + 2 * Mode<T>::STAGES * 8;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
+// One consumer warp's share of the tiles: rows r0 .. r0+15 of each, the
+// warp's rows of the block's buffers at act, emb, dsm.
 template <typename T, int W>
-__global__ void __launch_bounds__(THREADS, 1)
+__device__ void consume(const float* __restrict__ pts, const float* __restrict__ dirs,
+                        float* __restrict__ out, int n, const Params& p, Ring ring, T* act,
+                        T* emb, T* dsm, int first_tile, int tile_step, int tiles) {
+  using S = Smem<T, W>;
+  constexpr int KSTEP = Mode<T>::KSTEP;
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
+  const float kPi = 3.14159265358979323846f;
+  const T* wbuf = reinterpret_cast<const T*>(p.w);
+  const int D = p.D, E = p.E;
+
+  // the embedding's columns past E and the dirs' past 3 stay zero
+  for (int e = lane; e < 16 * EMB_COLS; e += 32)
+    if (e % EMB_COLS >= E) emb[(e / EMB_COLS) * S::LDE + e % EMB_COLS] = from_f<T>(0.f);
+  for (int e = lane; e < 16 * KSTEP; e += 32)
+    if (e % KSTEP >= 3) dsm[(e / KSTEP) * S::LDD + e % KSTEP] = from_f<T>(0.f);
+
+  for (int it = 0; it < tiles; ++it) {
+    const int r0 = (first_tile + it * tile_step) * TILE + wrow;
+
+    // positional encoding and raw dirs: two lanes a row, all loads first,
+    // each lane then taking every other (coordinate, frequency) of its row.
+    // A row past n encodes x = 0 (finite; its outputs are not stored).
+    {
+      const int r = lane & 15, half = lane >> 4;
+      const int g = r0 + r;
+      const bool in = g < n;
+      const float x0 = in ? pts[(size_t)g * 3] : 0.f;
+      const float x1 = in ? pts[(size_t)g * 3 + 1] : 0.f;
+      const float x2 = in ? pts[(size_t)g * 3 + 2] : 0.f;
+      T* er = emb + r * S::LDE;
+      if (half == 0) {
+        er[0] = from_f<T>(x0), er[1] = from_f<T>(x1), er[2] = from_f<T>(x2);
+      } else {
+        T* dr = dsm + r * S::LDD;
+        for (int d = 0; d < 3; ++d) dr[d] = from_f<T>(in ? dirs[(size_t)g * 3 + d] : 0.f);
+      }
+      for (int j = half; j < (E - 3) / 2; j += 2) {  // j = 3 f + d
+        const int f = j / 3, d = j - 3 * f;
+        const float x = d == 0 ? x0 : d == 1 ? x1 : x2;
+        float sn, cs;
+        sincosf((x * kPi) * (float)(1 << f), &sn, &cs);  // exact power-of-two scale
+        er[3 + 6 * f + d] = from_f<T>(sn);
+        er[6 + 6 * f + d] = from_f<T>(cs);
+      }
+    }
+    __syncwarp();
+
+    int i = 0;  // the next part of the packed buffer
+    float acc[W / 2];
+    for (int l = 0; l < D; ++l) {
+      zero(acc);
+      if (l == 0) {
+        gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring), ++i;
+      } else {
+        if ((p.skip_mask >> (l - 1)) & 1) {
+          // concat([emb, h]) @ W^T == emb @ W[:, :E]^T + h @ W[:, E:]^T
+          gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring), ++i;
+        }
+        gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+      }
+      epilogue<T, W>(acc, p.b[l], act, S::LDA, true);
+    }
+
+    // the alpha head reads the trunk output before the feature layer replaces it
+    float alpha[1];
+    head<1, T>(act, S::LDA, W, wbuf + p.off[i++], p.b[D], alpha);
+
+    zero(acc);
+    gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+    epilogue<T, W>(acc, p.b[D + 1], act, S::LDA, false);
+
+    // view layer on concat([feature, dirs]) as two partial sums
+    float accv[W / 4];
+    zero(accv);
+    gemm<T, W / 2>(accv, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+    gemm<T, W / 2>(accv, dsm, S::LDD, KSTEP, p.rows[i], p.kp[i], ring), ++i;
+    epilogue<T, W / 2>(accv, p.b[D + 2], act, S::LDA, true);
+
+    float rgb[3];
+    head<3, T>(act, S::LDA, W / 2, wbuf + p.off[i], p.b[D + 3], rgb);
+    const int g = r0 + (lane >> 1);
+    if ((lane & 1) == 0 && g < n) {
+      const float z = 10.f * alpha[0];  // softplus(10 x) / 10
+      const float sigma = (fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)))) / 10.f;
+      *reinterpret_cast<float4*>(out + (size_t)g * 4) = make_float4(rgb[0], rgb[1], rgb[2], sigma);
+    }
+    __syncwarp();  // the next tile's embedding overwrites what the heads read
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(THREADS, 1) __cluster_dims__(CLUSTER, 1, 1)
     fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                      float* __restrict__ out, int n, const __grid_constant__ Params p) {
   static_assert(W % 64 == 0, "W must be a multiple of 64");
   using S = Smem<T, W>;
-  constexpr int NT = W / 32;   // n8 tiles per warp, W-wide layers
-  constexpr int NTV = W / 64;  // the W/2-wide view layer
-  constexpr int KSTEP = Mode<T>::KSTEP;
-  extern __shared__ __align__(16) char smem[];
-  T* act = reinterpret_cast<T*>(smem);
-  T* emb = act + TILE * S::LDA;
-  T* dsm = emb + TILE * S::LDE;
-  Ring ring{reinterpret_cast<char*>(dsm + TILE * S::LDD), S::STAGE_BYTES, 0};
-  float* res = reinterpret_cast<float*>(ring.buf + 2 * S::STAGE_BYTES);
+  constexpr int STAGES = Mode<T>::STAGES;
+  extern __shared__ __align__(128) char smem[];
+  Ring ring{smem_u32(smem + S::RING), smem_u32(smem + S::BARS), S::STAGE_BYTES, STAGES, 0, 0};
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TILE;
-  const int E = p.E;
-  const float kPi = 3.14159265358979323846f;
-
-  // the first weight chunk streams in while the PE is computed
-  stage_chunk<T>(ring.buf, p, 0, 0);
-  cp_async_commit();
-
-  // positional encoding and raw dirs, zero past E / 3 (and past n); the
-  // first gemm's barrier orders these stores before any read
-  for (int e = tid; e < TILE * EMB_COLS; e += THREADS) {
-    const int r = e / EMB_COLS;
-    const int c = e - r * EMB_COLS;
-    const int g = row0 + r;
-    float v = 0.f;
-    if (g < n && c < E) {
-      if (c < 3) {
-        v = pts[(size_t)g * 3 + c];
-      } else {
-        const int f = (c - 3) / 6;
-        const int rem = (c - 3) - 6 * f;
-        const float x = pts[(size_t)g * 3 + rem % 3];
-        const float xb = (x * kPi) * (float)(1 << f);  // exact power-of-two scale
-        v = rem < 3 ? sinf(xb) : cosf(xb);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.bars + 8 * s, 1);                                   // the producer
+      mbar_init(ring.bars + 8 * (STAGES + s), CONSUMER_WARPS * CLUSTER);  // every consumer warp
     }
-    emb[r * S::LDE + c] = from_f<T>(v);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = tid; e < TILE * KSTEP; e += THREADS) {
-    const int r = e / KSTEP;
-    const int c = e - r * KSTEP;
-    const int g = row0 + r;
-    dsm[r * S::LDD + c] = from_f<T>((g < n && c < 3) ? dirs[(size_t)g * 3 + c] : 0.f);
+  cluster_sync();  // no block copies into or arrives at another's barriers before this
+
+  // The blocks of a cluster walk the same number of tiles, with the padded
+  // count a multiple of CLUSTER: they share every chunk.
+  const int tiles = (n + TILE - 1) / TILE;
+  const int padded = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
+  const int mine = (padded - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  if (threadIdx.x >= 128 * CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 128 * CONSUMERS) produce<T>(p, ring, mine);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wrow = (threadIdx.x >> 5) * 16;
+    T* act = reinterpret_cast<T*>(smem + S::ACT) + wrow * S::LDA;
+    T* emb = reinterpret_cast<T*>(smem + S::EMB) + wrow * S::LDE;
+    T* dsm = reinterpret_cast<T*>(smem + S::DIRS) + wrow * S::LDD;
+    consume<T, W>(pts, dirs, out, n, p, ring, act, emb, dsm, blockIdx.x, gridDim.x, mine);
   }
+}
 
-  const int D = p.D;
-  const T* wbuf = static_cast<const T*>(p.w);
-  int i = 0;  // the next part of the packed buffer
-  float acc[4][NT][4];
-  for (int l = 0; l < D; ++l) {
-    zero(acc);
-    if (l == 0) {
-      gemm<T, NT>(acc, emb, S::LDE, p, i++, ring);
-    } else {
-      if ((p.skip_mask >> (l - 1)) & 1) {
-        // concat([emb, h]) @ W^T == emb @ W[:, :E]^T + h @ W[:, E:]^T
-        gemm<T, NT>(acc, emb, S::LDE, p, i++, ring);
-      }
-      gemm<T, NT>(acc, act, S::LDA, p, i++, ring);
-    }
-    epilogue<T, NT>(acc, p.b[l], act, S::LDA, true);
+// Sets the kernel's shared memory and returns in *blocks how many of its
+// blocks the card holds at once (whole clusters), on the first call only.
+template <typename T, int W>
+cudaError_t prepare(int* blocks) {
+  static int resident = 0;
+  if (resident == 0) {
+    auto kernel = fused_mlp_kernel<T, W>;
+    const int smem = Smem<T, W>::BYTES;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    // setmaxnreg moves registers between the warpgroups; it can only hand
+    // out what the launch allocated (else .inc would wait forever)
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * THREADS < CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128)
+      return cudaErrorInvalidConfiguration;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CLUSTER);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    resident = clusters * CLUSTER;
   }
-  __syncthreads();
-
-  // the alpha head reads the trunk output before the feature layer replaces
-  // it; the feature gemm's barriers order the two
-  head<1, T>(act, S::LDA, W, wbuf + p.off[i++], p.b[D], res + 3);
-
-  zero(acc);
-  gemm<T, NT>(acc, act, S::LDA, p, i++, ring);
-  epilogue<T, NT>(acc, p.b[D + 1], act, S::LDA, false);
-
-  // view layer on concat([feature, dirs]) as two partial sums
-  float accv[4][NTV][4];
-  zero(accv);
-  gemm<T, NTV>(accv, act, S::LDA, p, i++, ring);
-  gemm<T, NTV>(accv, dsm, S::LDD, p, i++, ring);
-  epilogue<T, NTV>(accv, p.b[D + 2], act, S::LDA, true);
-  __syncthreads();
-
-  head<3, T>(act, S::LDA, W / 2, wbuf + p.off[i], p.b[D + 3], res);
-  __syncthreads();
-
-  for (int e = tid; e < TILE * 4; e += THREADS) {
-    const int g = row0 + (e >> 2);
-    if (g >= n) continue;
-    float v = res[e];
-    if ((e & 3) == 3) {
-      const float z = 10.f * v;  // softplus(10 x) / 10
-      v = (fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)))) / 10.f;
-    }
-    out[(size_t)g * 4 + (e & 3)] = v;
-  }
+  *blocks = resident;
+  return cudaSuccess;
 }
 
 template <typename T, int W>
 cudaError_t launch(const float* pts, const float* dirs, float* out, int n, const Params& p,
                    cudaStream_t stream) {
-  const size_t smem = Smem<T, W>::BYTES;
-  auto kernel = fused_mlp_kernel<T, W>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int resident;
+  cudaError_t err = prepare<T, W>(&resident);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + TILE - 1) / TILE;
-  kernel<<<blocks, THREADS, smem, stream>>>(pts, dirs, out, n, p);
+  const int tiles = (n + TILE - 1) / TILE;
+  const int padded = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
+  fused_mlp_kernel<T, W><<<min(padded, resident), THREADS, Smem<T, W>::BYTES, stream>>>(
+      pts, dirs, out, n, p);
   return cudaGetLastError();
 }
 
@@ -506,9 +794,12 @@ cudaError_t launch_t(const float* pts, const float* dirs, float* out, int n, int
 
 // The parts pack_layout writes, checked against the order the kernel reads
 // them in: rows W for the trunk and feature, W/2 for the view layer, 1 and
-// 3 for the heads; K padded to a product depth: the emb parts to between E
-// and EMB_COLS, the dirs part to exactly one depth, the others not at all.
-bool check_layout(Params& p, int W, int kstep, int n_parts) {
+// 3 for the heads; a product part's K padded to whole chunks: the emb parts
+// to between E and EMB_COLS, the dirs part to one chunk, the others not at
+// all (W is a whole number of chunks), a head's not at all. Each product
+// part is `copies` images of rows x kp, a head rows x kp; the parts follow
+// each other with no gap.
+bool check_layout(const Params& p, int W, int chunk, int copies) {
   const int D = p.D;
   int rows[MAX_PARTS], kmin[MAX_PARTS], kmax[MAX_PARTS];
   int m = 0;
@@ -520,20 +811,18 @@ bool check_layout(Params& p, int W, int kstep, int n_parts) {
     if (l == 0 || ((p.skip_mask >> (l - 1)) & 1)) expect(W, p.E, EMB_COLS);
     if (l > 0) expect(W, W, W);
   }
-  const int alpha = m;
   expect(1, W, W);
   expect(W, W, W);
-  const int views = m;
   expect(W / 2, W, W);
-  expect(W / 2, kstep, kstep);
+  expect(W / 2, chunk, chunk);
   expect(3, W / 2, W / 2);
-  if (m != n_parts) return false;
+  if (m != p.n_parts) return false;
+  int end = 0;
   for (int i = 0; i < m; ++i) {
-    if (p.rows[i] != rows[i] || p.kp[i] < kmin[i] || p.kp[i] > kmax[i] || p.kp[i] % kstep != 0 ||
-        p.off[i] < 0 || p.off[i] % 8 != 0)
+    if (p.rows[i] != rows[i] || p.kp[i] < kmin[i] || p.kp[i] > kmax[i] ||
+        (rows[i] >= 8 && p.kp[i] % chunk != 0) || p.off[i] != end)
       return false;
-    const bool last_product = i == alpha || i == views + 1 || i == m - 1;
-    p.next[i] = last_product ? -1 : (i + 1 == alpha ? alpha + 1 : i + 1);
+    end += (rows[i] < 8 ? 1 : copies) * rows[i] * p.kp[i];
   }
   return true;
 }
@@ -542,20 +831,20 @@ bool check_layout(Params& p, int W, int kstep, int n_parts) {
 
 // pts, dirs: (n, 3) f32; out: (n, 4) f32. packed: the weights as
 // ops/fused_mlp.py::pack_weights writes them, bf16 when bf16 != 0 and f32
-// otherwise; layout: n_parts triples (element offset, rows, padded K) from
-// pack_layout; biases: D + 4 device pointers to the f32 biases in the order
-// trunk 0..D-1, alpha, feature, views, rgb. Returns a cudaError_t; 0 is
-// success.
+// otherwise, 16-byte aligned; layout: n_parts triples (element offset, rows,
+// padded K) from pack_layout; biases: D + 4 device pointers to the f32
+// biases in the order trunk 0..D-1, alpha, feature, views, rgb. Launches one
+// kernel on `stream`. Returns a cudaError_t; 0 is success.
 extern "C" int fused_mlp_forward(const float* pts, const float* dirs, float* out, int n, int D,
                                  int W, int num_freqs, int skip_mask, int bf16_mode,
                                  const void* packed, const int* layout, int n_parts,
                                  const void* const* biases, void* stream) {
   if (n <= 0) return 0;
   if (D < 1 || D > MAX_D || num_freqs < 1 || 3 + 6 * num_freqs > EMB_COLS ||
-      n_parts < 1 || n_parts > MAX_PARTS)
+      n_parts < 1 || n_parts > MAX_PARTS || reinterpret_cast<uintptr_t>(packed) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.w = packed;
+  p.w = static_cast<const char*>(packed);
   for (int i = 0; i < n_parts; ++i) {
     p.off[i] = layout[3 * i];
     p.rows[i] = layout[3 * i + 1];
@@ -565,9 +854,25 @@ extern "C" int fused_mlp_forward(const float* pts, const float* dirs, float* out
   p.D = D;
   p.E = 3 + 6 * num_freqs;
   p.skip_mask = skip_mask & ((1 << (D - 1)) - 1);
-  if (!check_layout(p, W, bf16_mode ? Mode<bf16>::KSTEP : Mode<float>::KSTEP, n_parts))
-    return (int)cudaErrorInvalidValue;
+  p.n_parts = n_parts;
+  const bool ok =
+      bf16_mode ? check_layout(p, W, Mode<bf16>::KSTEP * Mode<bf16>::DEPTHS, Mode<bf16>::COPIES)
+                : check_layout(p, W, Mode<float>::KSTEP * Mode<float>::DEPTHS, Mode<float>::COPIES);
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16_mode ? (int)launch_t<bf16>(pts, dirs, out, n, W, p, s)
                    : (int)launch_t<float>(pts, dirs, out, n, W, p, s);
+}
+
+// The geometry the built kernel uses: points a block takes at a time, blocks
+// sharing each weight copy, the ring's stages in bf16 and f32 mode, and the
+// blocks the card holds at once at W=256 in each mode. Returns a cudaError_t.
+extern "C" int fused_mlp_geometry(int* tile, int* cluster, int* stages_bf16, int* stages_f32,
+                                  int* blocks_bf16, int* blocks_f32) {
+  *tile = TILE;
+  *cluster = CLUSTER;
+  *stages_bf16 = Mode<bf16>::STAGES;
+  *stages_f32 = Mode<float>::STAGES;
+  cudaError_t err = prepare<bf16, 256>(blocks_bf16);
+  return (int)(err != cudaSuccess ? err : prepare<float, 256>(blocks_f32));
 }

@@ -3,9 +3,12 @@
 Replaces the Pallas kernel ``scade_tpu/ops/fused_mlp.py::_kernel``. The CUDA
 source is ``csrc/fused_mlp.cu``; its header says what bounds it on the card
 (operations: 1.17 MFLOP per point at D=8, W=256, F=9) and how the design
-keeps the activations on chip and runs the W-wide layers on the tensor cores.
-The kernel reads its weights from one buffer that ``pack_weights`` writes per
-call, in the layout ``pack_layout`` describes.
+keeps the activations on chip and runs the W-wide layers on the tensor cores
+with ``wgmma``, its weights streamed by bulk asynchronous copies into a ring
+of ``mbarrier``-guarded stages. The kernel reads its weights from one buffer
+that ``pack_weights`` writes per call, in the layout ``pack_layout`` and
+``part_positions`` describe: each staged chunk is already the shared-memory
+image the products read.
 
 ``fused_nerf_apply`` is the entry point. For CUDA tensors it launches the
 kernel (``fused_mlp_cuda``) and raises if the launch fails; only for CPU
@@ -105,8 +108,10 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
 @dataclasses.dataclass(frozen=True)
 class Part:
     """One matrix of the packed weight buffer: rows ``n`` of layer ``layer``'s
-    weight, input columns ``k0 .. k0 + k``, stored row-major with ``kp``
-    columns (zeros past ``k``) from element ``offset`` on."""
+    weight, input columns ``k0 .. k0 + k``, padded with zero columns to
+    ``kp``, from element ``offset`` on. A head (``staged`` False: alpha, rgb)
+    is stored row-major. A tensor-core part (``staged``) is a run of chunk
+    images, ``copies`` of each: see ``part_positions``."""
 
     layer: int
     k0: int
@@ -114,11 +119,38 @@ class Part:
     kp: int
     n: int
     offset: int
+    staged: bool = False
+    copies: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.copies * self.n * self.kp
 
 
 def kstep(dtype) -> int:
-    """Depth of one tensor-core product: m16n8k16 in bf16, m16n8k8 in tf32."""
+    """Depth of one tensor-core product: wgmma k16 in bf16, k8 in tf32 (32
+    bytes either way)."""
     return 16 if dtype == torch.bfloat16 else 8
+
+
+def chunk_depth(dtype) -> int:
+    """K of one staged weight chunk, the group of products summed apart
+    before the rounded add: 64 in bf16 (four k16 products), 8 in tf32 (the
+    three k8 products of 3xTF32)."""
+    return 64 if dtype == torch.bfloat16 else 8
+
+
+def copies(dtype) -> int:
+    """Copies of a staged chunk: f32 weights come as their tf32 hi and lo
+    halves (``tf32_round``), bf16 weights as they are."""
+    return 2 if dtype == torch.float32 else 1
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits' ulp
+    to the magnitude, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,20 +158,22 @@ def pack_layout(cfg: FusedCfg, dtype) -> Tuple[Part, ...]:
     """The parts of the packed buffer, in the order the kernel reads them:
     each trunk layer (the skip layer as its emb part, then its h part), the
     alpha head, the feature layer, the view layer (feature part, then dirs
-    part), the rgb head. K is padded with zeros to a whole product depth (32
-    bytes), so every row and every part starts 32-byte aligned, as
-    ``cp.async`` needs; the skip layer's emb part and layer 0 take E = 3 + 6F
-    to at most 64 columns, the dirs part 3 to one depth."""
+    part), the rgb head, one after another with no gap. A staged part's K is
+    padded with zeros to whole chunks (``chunk_depth``): the skip layer's emb
+    part and layer 0 take E = 3 + 6F to at most 64 columns, the dirs part 3
+    to one chunk. A head's K (W or W/2) is whole product depths as it is.
+    Every part starts 16-byte aligned, as ``cp.async.bulk`` needs."""
     D, W, E = cfg.D, cfg.W, 3 + 6 * cfg.num_freqs
-    step = kstep(dtype)
     parts: List[Part] = []
     end = 0
 
-    def add(layer, k0, k, n):
+    def add(layer, k0, k, n, staged=True):
         nonlocal end
+        step = chunk_depth(dtype) if staged else kstep(dtype)
         kp = -(-k // step) * step
-        parts.append(Part(layer, k0, k, kp, n, end))
-        end += n * kp
+        part = Part(layer, k0, k, kp, n, end, staged, copies(dtype) if staged else 1)
+        parts.append(part)
+        end += part.size
 
     for layer in range(D):
         if layer == 0:
@@ -149,12 +183,31 @@ def pack_layout(cfg: FusedCfg, dtype) -> Tuple[Part, ...]:
             add(layer, E, W, W)
         else:
             add(layer, 0, W, W)
-    add(D, 0, W, 1)  # alpha
+    add(D, 0, W, 1, staged=False)  # alpha
     add(D + 1, 0, W, W)  # feature
     add(D + 2, 0, W, W // 2)  # views on the feature
     add(D + 2, W, 3, W // 2)  # views on the dirs
-    add(D + 3, 0, W // 2, 3)  # rgb
+    add(D + 3, 0, W // 2, 3, staged=False)  # rgb
     return tuple(parts)
+
+
+def part_positions(p: Part, dtype) -> torch.Tensor:
+    """(copies, n, kp): where each element of the part's padded matrix lies in
+    the packed buffer. A head is row-major. A staged part is cut along K into
+    chunks of ``chunk_depth``, stored one after the other, each as
+    ``copies`` images (f32: hi, then lo) of the shared memory
+    that the kernel's wgmma B descriptor reads: core matrices of 8 rows x 16
+    bytes, 128 contiguous bytes each; in a chunk, the core matrices of rows
+    8b..8b+7 lie together, in K order. So one bulk copy moves a chunk as it
+    is."""
+    rows, kk = torch.arange(p.n)[:, None], torch.arange(p.kp)
+    if not p.staged:
+        return (p.offset + rows * p.kp + kk)[None]
+    cd, t16 = chunk_depth(dtype), 16 // torch.empty((), dtype=dtype).element_size()
+    c, kl = kk // cd, kk % cd
+    within = (rows // 8) * 8 * cd + (kl // t16) * 8 * t16 + (rows % 8) * t16 + kl % t16
+    copy = torch.arange(p.copies)[:, None, None] * p.n * cd
+    return p.offset + c * p.copies * p.n * cd + copy + within
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,35 +221,52 @@ def _weight_shapes(cfg: FusedCfg) -> Tuple[Tuple[int, int], ...]:
 
 @functools.lru_cache(maxsize=None)
 def _pack_index(cfg: FusedCfg, dtype, device) -> torch.Tensor:
-    """For each element of the packed buffer, the index of its weight in the
-    weight matrices flattened and concatenated, or one past their end (a
-    zero) where ``pack_layout`` pads."""
+    """For each element of the packed buffer, its index in ``_pack_source``:
+    the weight matrices flattened and concatenated (bf16, or f32 followed by
+    their tf32 hi and lo halves), then one zero, taken where ``pack_layout``
+    pads."""
     shapes = _weight_shapes(cfg)
     starts = [0]
     for n, k in shapes:
         starts.append(starts[-1] + n * k)
+    total = starts[-1]
     parts = pack_layout(cfg, dtype)
-    index = torch.full((parts[-1].offset + parts[-1].n * parts[-1].kp,), starts[-1])
+    zero = total * (3 if dtype == torch.float32 else 1)
+    index = torch.full((parts[-1].offset + parts[-1].size,), zero)
     for p in parts:
         k_in = shapes[p.layer][1]
-        src = starts[p.layer] + p.k0 + torch.arange(p.n)[:, None] * k_in + torch.arange(p.k)
-        index[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k] = src
+        src = torch.full((p.n, p.kp), -1)
+        src[:, :p.k] = starts[p.layer] + p.k0 + torch.arange(p.n)[:, None] * k_in + torch.arange(p.k)
+        pos = part_positions(p, dtype)
+        for cp in range(p.copies):
+            # a staged f32 part reads the hi, then the lo halves
+            base = (1 + cp) * total if p.staged and dtype == torch.float32 else 0
+            index[pos[cp]] = torch.where(src >= 0, src + base, zero)
     return index.to(device)
+
+
+def _pack_source(mats: Sequence[torch.Tensor], dtype) -> torch.Tensor:
+    flat = torch.cat([m.reshape(-1) for m in mats]).to(dtype)
+    zero = flat.new_zeros(1)
+    if dtype != torch.float32:
+        return torch.cat([flat, zero])
+    hi = tf32_round(flat)
+    return torch.cat([flat, hi, tf32_round(flat - hi), zero])
 
 
 def pack_weights(weights: Sequence[torch.Tensor], cfg: FusedCfg, dtype) -> torch.Tensor:
     """The weights of ``flat_weights`` in the kernel's packed layout: one
-    contiguous 1-D buffer of ``dtype`` (bf16, or f32 for the 3xTF32 mode),
-    zero wherever ``pack_layout`` pads, written anew on every call by one
-    gather. Biases are not packed: the kernel reads them as they are, in
-    f32."""
+    contiguous 1-D buffer of ``dtype`` (bf16, or f32 for the 3xTF32 mode,
+    whose staged parts hold the tf32 hi and lo halves), zero wherever
+    ``pack_layout`` pads, written anew on every call by one gather. Biases are
+    not packed: the kernel reads them as they are, in f32."""
     mats = [w.detach() for w in weights[0::2]]
     shapes = _weight_shapes(cfg)
     if [tuple(m.shape) for m in mats] != list(shapes):
         raise ValueError(f"pack_weights: weight shapes {[tuple(m.shape) for m in mats]}, "
                          f"expected {list(shapes)}")
-    flat = torch.cat([*(m.reshape(-1) for m in mats), mats[0].new_zeros(1)]).to(dtype)
-    return flat[_pack_index(cfg, dtype, flat.device)]
+    src = _pack_source(mats, dtype)
+    return src[_pack_index(cfg, dtype, src.device)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,6 +281,19 @@ def _check_operand(t: torch.Tensor, shape, what: str):
                          f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def kernel_geometry() -> dict:
+    """The built kernel's points per block at a time, blocks of a cluster
+    sharing each weight copy, stages of its ring in bf16 and f32 mode, and
+    the blocks the card holds at once at W=256 in each mode."""
+    fn = _kernels.load("fused_mlp").fused_mlp_geometry
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(6)]
+    _kernels.check(fn(*[ctypes.byref(v) for v in vals]), "fused_mlp_geometry")
+    return dict(zip(("tile", "cluster", "stages_bf16", "stages_f32", "blocks_bf16",
+                     "blocks_f32"), (v.value for v in vals)))
 
 
 def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,

@@ -18,7 +18,9 @@ and holds the kernel to it and to sums taken in f64 (on an H100, at the main
 path's shapes: the kernel 97.9% of points within 1e-4, the plain version
 reordered 97.4%, both at most 3.0e-2; at this file's sizes the kernel keeps
 96.9-100%). A kernel run in the other mode fails either bound. Point counts
-around the 128-point tile check its masked edge. K2 2e-6/1e-6 where the
+around the 128-point tile and the 256 points of a 2-block cluster check the
+masked edge and a cluster whose second block has no points; 40,000 points
+(313 tiles) make the persistent blocks walk several tiles each. K2 2e-6/1e-6 where the
 order of its sums cannot matter: against the plain lookup of the CDF summed
 in the kernel's order (cdf_kernel_order), and against the plain sample_pdf
 on dyadic weights, which every order sums exactly; its strided and
@@ -51,6 +53,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,F,n", [(256, 9, 1000), (256, 9, 127), (256, 9, 128), (256, 9, 129),
+                                   (256, 9, 255), (256, 9, 256), (256, 9, 257), (256, 9, 40000),
                                    (128, 4, 77), (64, 10, 64)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-4)])
 def test_k1_matches_plain(cuda, W, F, n, dtype, tol):

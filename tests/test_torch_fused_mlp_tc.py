@@ -3,10 +3,14 @@ weight buffer the kernel reads (``pack_layout``, ``pack_weights``), and the
 arithmetic of its f32 mode ("3xTF32") emulated in PyTorch.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py). Here:
-- the packing round-trips bit for bit, pads with zeros, aligns every part to
-  16 bytes (every row to 32) and splits the skip layer and the view layer
-  where the kernel reads them, at small configs (W=64/128, D=8, F=4/10);
-  it reads the weights anew on every call and refuses wrong shapes;
+- the packing round-trips bit for bit through the inverse of its
+  permutation (f32 parts as their tf32 hi and lo halves), pads with zeros,
+  aligns every part to 16 bytes and every staged chunk to one contiguous
+  bulk copy of 128-byte core matrices, and splits the skip layer and the
+  view layer where the kernel reads them, at small configs (W=64/128, D=8,
+  F=4/10); read back by the kernel's descriptor arithmetic, each chunk
+  holds the weights where the products look; it reads the weights anew on
+  every call and refuses wrong shapes;
 - 3xTF32 through the whole network at W=256, F=9 on 4,096 points stays
   within 1e-5 of ``fused_mlp_plain`` (its f32 function, evaluated in f64;
   2.9e-6 seen), far under the 1e-4 the kernel is held to on the card, while
@@ -43,6 +47,23 @@ def bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
+def unpacked(buf, p, dtype):
+    """Part ``p``'s (copies, n, kp) matrices read back from the packed buffer
+    through the inverse of the layout's permutation."""
+    return buf[fused_mlp.part_positions(p, dtype)]
+
+
+def expected_copies(w, p, dtype):
+    """What the kernel must find for part ``p`` of weight ``w`` (its columns
+    k0 .. k0 + k): the tf32 hi and lo halves of a staged f32 part, else the
+    weights in ``dtype``."""
+    w = w.detach()[:, p.k0:p.k0 + p.k]
+    if p.staged and dtype == torch.float32:
+        hi = tf32_rna(w)
+        return [hi, tf32_rna(w - hi)]
+    return [w.to(dtype)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,F", CONFIGS)
 def test_pack_round_trips(W, F, dtype):
@@ -50,49 +71,79 @@ def test_pack_round_trips(W, F, dtype):
     assert buf.dtype == dtype and buf.dim() == 1 and buf.is_contiguous()
     for layer in range(cfg.D + 4):
         mine = sorted((p for p in parts if p.layer == layer), key=lambda p: p.k0)
-        rebuilt = torch.cat([buf[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k]
-                             for p in mine], dim=1)
-        w = weights[2 * layer].detach().to(dtype)
-        assert rebuilt.shape == w.shape
-        assert torch.equal(bits(rebuilt), bits(w))
+        assert sum(p.k for p in mine) == weights[2 * layer].shape[1]
+        for p in mine:
+            got = unpacked(buf, p, dtype)[..., :p.k]
+            want = expected_copies(weights[2 * layer], p, dtype)
+            assert got.shape[0] == len(want) == p.copies
+            for g, w in zip(got, want):
+                assert torch.equal(bits(g), bits(w))
+    # f32: hi + lo is the weight to 2^-22 of it, and a weight that tf32 holds
+    # exactly has a zero lo half
+    if dtype == torch.float32:
+        p = parts[1]
+        hi, lo = unpacked(buf, p, dtype)[..., :p.k]
+        w = weights[2 * p.layer].detach()[:, p.k0:p.k0 + p.k]
+        assert ((hi + lo - w).abs() <= w.abs() * 2.0**-21).all()
+        assert not (lo[hi == w] != 0).any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,F", CONFIGS)
 def test_pack_pads_with_zeros(W, F, dtype):
     cfg, weights, buf, parts = packed(W, F, dtype)
-    used = torch.zeros(buf.numel(), dtype=torch.bool)
+    used = torch.zeros(buf.numel(), dtype=torch.int64)
+    holds = torch.zeros(buf.numel(), dtype=torch.bool)
+    first = torch.zeros(buf.numel(), dtype=torch.bool)  # a weight or its hi half
     for p in parts:
-        used[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k] = True
-    assert int(used.sum()) == sum(p.n * p.k for p in parts)  # no part overlaps another
-    assert not bits(buf)[~used].any()
-    # every weight lands in a used slot: the source's nonzero mask, packed,
-    # is nonzero exactly where the packed weights are (uniform_ can draw an
-    # exact 0, about once in 2^24 draws)
+        pos = fused_mlp.part_positions(p, dtype)
+        used.index_add_(0, pos.reshape(-1), torch.ones(pos.numel(), dtype=torch.int64))
+        holds[pos[..., :p.k].reshape(-1)] = True
+        first[pos[0, :, :p.k].reshape(-1)] = True
+    assert (used == 1).all()  # the parts tile the buffer: no gap, no overlap
+    assert int(holds.sum()) == sum(p.copies * p.n * p.k for p in parts)
+    assert not bits(buf)[~holds].any()
+    # every weight lands in a slot that holds one: the source's nonzero mask,
+    # packed, is nonzero exactly where the packed weights are (uniform_ can
+    # draw an exact 0, about once in 2^24 draws); a 1's lo half is 0
     source_nonzero = fused_mlp.pack_weights([(w != 0).float() for w in weights], cfg,
                                             dtype) != 0
-    assert (source_nonzero <= used).all()
-    assert torch.equal(buf != 0, source_nonzero)
+    assert (source_nonzero <= holds).all()
+    assert torch.equal((buf != 0)[first], source_nonzero[first])
+    assert not source_nonzero[holds & ~first].any()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,F", CONFIGS)
 def test_pack_aligns_parts_and_rows(W, F, dtype):
-    _, _, buf, parts = packed(W, F, dtype)
+    cfg, _, buf, parts = packed(W, F, dtype)
     elem = buf.element_size()
-    step = fused_mlp.kstep(dtype)
+    step, depth = fused_mlp.kstep(dtype), fused_mlp.chunk_depth(dtype)
     for p in parts:
-        assert p.offset * elem % 16 == 0  # cp.async copies 16 bytes
+        assert p.offset * elem % 16 == 0  # cp.async.bulk copies from 16-byte boundaries
         assert p.kp % step == 0 and p.kp * elem % 32 == 0  # a row is whole product depths
-        assert p.k <= p.kp < p.k + step
-    assert parts[-1].offset + parts[-1].n * parts[-1].kp == buf.numel()
+        pad = depth if p.staged else step  # a staged part is whole chunks
+        assert p.kp % pad == 0 and p.k <= p.kp < p.k + pad
+        if not p.staged:
+            continue
+        # every chunk is one bulk copy of 16-byte multiples, its core
+        # matrices 128-byte aligned, and fits a stage of the ring
+        pos = fused_mlp.part_positions(p, dtype)
+        for k0 in range(0, p.kp, depth):
+            chunk = pos[:, :, k0:k0 + depth]
+            lo, size = int(chunk.min()), chunk.numel()
+            assert lo * elem % 16 == 0 and size * elem % 16 == 0
+            assert int(chunk.max()) == lo + size - 1  # contiguous
+            assert not ((chunk[:, ::8, ::16 // elem] - lo) * elem % 128).any()
+            assert size <= cfg.W * depth * p.copies  # a stage: W rows of a chunk
+    assert parts[-1].offset + parts[-1].size == buf.numel()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("W,F", CONFIGS)
 def test_pack_splits_where_the_kernel_reads(W, F, dtype):
     cfg, _, _, parts = packed(W, F, dtype)
-    D, E, step = cfg.D, 3 + 6 * F, fused_mlp.kstep(dtype)
+    D, E, depth = cfg.D, 3 + 6 * F, fused_mlp.chunk_depth(dtype)
     # the kernel's order: trunk (the skip layer as emb part, then h part),
     # alpha, feature, views (feature part, then dirs part), rgb
     order = [(p.layer, p.k0, p.k, p.n) for p in parts]
@@ -102,7 +153,43 @@ def test_pack_splits_where_the_kernel_reads(W, F, dtype):
                              (D + 2, W, 3, W // 2), (D + 3, 0, W // 2, 3)]
     emb_parts = [p for p in parts if p.k0 == 0 and p.k == E]
     assert len(emb_parts) == 2 and all(E <= p.kp <= 64 for p in emb_parts)
-    assert parts[-2].kp == step  # the dirs part: 3 columns padded to one depth
+    assert parts[-2].kp == depth  # the dirs part: 3 columns padded to one chunk
+    # the heads stay on the CUDA cores, row-major and whole; every other part
+    # goes through the tensor cores, in f32 as its hi and lo halves
+    assert [p.staged for p in parts] == [p.n >= 8 for p in parts]
+    assert all(p.copies == (fused_mlp.copies(dtype) if p.staged else 1) for p in parts)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pack_chunks_are_what_the_descriptor_reads(dtype):
+    """Reads each staged chunk back the way the kernel's products do: a
+    group of products for output columns col .. col + 63 at product depth i
+    of a chunk starting at byte st reads B[n][k] (k < 32 bytes of the depth)
+    at st + (col / 8) * SBO + i * 256 + ((n - col) / 8) * SBO + (k bytes / 16)
+    * 128 (LBO) + (n % 8) * 16 + k bytes % 16, SBO = 256 bytes per depth of
+    the chunk; an f32 chunk's lo copy follows its hi copy at rows * 32
+    bytes. Every chunk is whole: 4 depths in bf16, 1 in f32."""
+    cfg, weights, buf, parts = packed(128, 9, dtype)
+    elem = buf.element_size()
+    raw = buf.view(torch.uint8)
+    depth, per = fused_mlp.chunk_depth(dtype), 32 // elem  # elements a product depth
+    for p in (p for p in parts if p.staged):
+        want = expected_copies(weights[2 * p.layer], p, dtype)
+        for c0 in range(0, p.kp, depth):
+            depths = depth // per
+            st = (p.offset + c0 * p.copies * p.n) * elem
+            sbo = depths * 256
+            for cp in range(p.copies):
+                base = st + cp * p.n * depths * 32
+                for n in range(0, p.n, 3):  # every third row
+                    for kk in range(depths * per):
+                        k = c0 + kk
+                        i, kb = divmod(kk * elem, 32)
+                        at = base + (n // 8) * sbo + i * 256 + (kb // 16) * 128 + (n % 8) * 16 \
+                            + kb % 16
+                        v = raw[at:at + elem].view(dtype)[0]
+                        w = want[cp][n, k] if k < p.k else torch.zeros((), dtype=dtype)
+                        assert torch.equal(bits(v), bits(w)), (p, cp, n, k)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -111,8 +198,8 @@ def test_pack_reads_the_weights_of_each_call(dtype):
     weights[2].data.mul_(2)  # a write the version counter does not see
     after = fused_mlp.pack_weights(weights, cfg, dtype)
     p = next(p for p in parts if p.layer == 1)
-    rows = after[p.offset:p.offset + p.n * p.kp].view(p.n, p.kp)[:, :p.k]
-    assert torch.equal(bits(rows), bits(weights[2].detach().to(dtype)))
+    for got, want in zip(unpacked(after, p, dtype)[..., :p.k], expected_copies(weights[2], p, dtype)):
+        assert torch.equal(bits(got), bits(want))
     assert not torch.equal(before, after)
 
 
@@ -147,6 +234,7 @@ def linear_tf32(x, w, b):
 def test_tf32_rounding_is_to_nearest():
     x = torch.from_numpy(np.random.default_rng(0).normal(size=10000).astype(np.float32))
     r = tf32_rna(x)
+    assert torch.equal(fused_mlp.tf32_round(x), r)  # what pack_weights splits with
     assert not (r.view(torch.int32) & 0x1FFF).any()
     assert ((r - x).abs() <= x.abs() * 2.0**-11).all()  # half an ulp of 10 mantissa bits
     # ties go away from zero: 1 + 2^-11 lies halfway between 1 and 1 + 2^-10
