@@ -8,7 +8,7 @@ at once), then prints one line per phase (with --k1-only the first two, for
 comparing K1 builds of two trees on one card):
 
   device  card name and power limit (nvidia-smi), build time, K1's registers,
-          spills and warnings (ptxas), its tile, cluster and ring stages, and
+          spills and warnings (ptxas), its tile, ring stages and resident blocks, and
           its tensor-core instructions (cuobjdump -sass: HGMMA, from wgmma, in
           bf16 and tf32; none of either, or any HMMA, is a fault)
   k1      the fused PE + MLP kernel, through its wrapper, against its plain
@@ -470,9 +470,8 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     with torch.no_grad():
         pack_ms = {name: cuda_ms(lambda: fused_mlp.pack_weights(weights, cfg, dt), 20)
                    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-    # Bytes each launch reads from L2: every staged chunk once per tile of
-    # each cluster (the blocks of a cluster share one copy of it), the heads
-    # once per block's tile.
+    # Bytes each launch reads from L2: every staged chunk and the heads once
+    # per tile.
     geo = fused_mlp.kernel_geometry()
     l2_bytes = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -519,7 +518,7 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
                 tflops=flops / ms / 1e9)
             tiles = -(-n // geo["tile"])
             staged, heads = l2_bytes[dname]
-            entry["l2_weight_bytes"] = -(-tiles // geo["cluster"]) * staged + tiles * heads
+            entry["l2_weight_bytes"] = tiles * (staged + heads)
             entry["l2_weight_bytes_per_point"] = entry["l2_weight_bytes"] / n
             if dt == torch.float32:
                 entry["fma_bound_ms"] = flops / PEAK_F32 * 1e3

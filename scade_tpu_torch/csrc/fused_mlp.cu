@@ -25,7 +25,7 @@
 //    the running sums, 96.2% of the points of a render chunk stayed within
 //    1e-4 of the plain version against 97.4% for the plain version with its
 //    sums reordered; with the 64-deep groups 97.4%, with 32-deep ones 97.9%
-//    at 1.3x the time (H100, tools/k1_variants.py; PERF.md).
+//    at 1.3x the time (H100; PERF.md).
 //  - f32 mode, "3xTF32": each f32 operand x is split into hi = rna_tf32(x)
 //    and lo = rna_tf32(x - hi), and a product is summed as lo*hi + hi*lo +
 //    hi*hi with k8 tf32 -> f32. The dropped lo*lo term is ~2^-22 relative, so
@@ -56,12 +56,9 @@
 //    consumer warp arrives on its "empty" mbarrier when the products that
 //    read it are done. The producer runs ahead across layers and tiles.
 //  - Every block reads every chunk from L2: 9,364 bytes a point in bf16 and
-//    36,968 in f32 (hi and lo) at D=8, W=256, F=9. With CLUSTER = 2 a pair
-//    of blocks on neighbouring SMs shares each chunk: each producer copies
-//    half of it with .multicast::cluster into both blocks' rings, which
-//    halves those bytes. On an H100 that made K1 2% slower in f32 and 3-7%
-//    in bf16 at the render shapes (tools/k1_variants.py; PERF.md): L2 is
-//    not what bounds K1 at the rate it reaches, so CLUSTER is 1.
+//    36,968 in f32 (hi and lo) at D=8, W=256, F=9. A pair of blocks sharing
+//    each chunk by a multicast copy halved those bytes and made K1 no faster
+//    on an H100 (PERF.md): L2 is not what bounds it at the rate it reaches.
 //  - Persistent blocks: as many blocks as fit on the card walk the tiles,
 //    so the next tile's first chunks load while the current one finishes.
 //  - Within a layer a consumer walks its output columns in slabs of 64: each
@@ -92,7 +89,6 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
 constexpr int CONSUMER_REGS = 232;           // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int PRODUCER_REGS = 40;            //   = 384 x 168, the launch's registers
-constexpr int CLUSTER = 1;                   // blocks sharing each weight copy (see above)
 constexpr int MAX_D = 16;                    // trunk depth supported
 constexpr int MAX_PARTS = 2 * MAX_D + 4;
 constexpr int EMB_COLS = 64;                 // E = 3 + 6F <= 64, zero-filled past E
@@ -149,7 +145,7 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// ---- mbarriers, bulk copies, clusters --------------------------------------
+// ---- mbarriers, bulk copies -------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(unsigned bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -173,55 +169,18 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
                : "memory");
 }
 
-// Arrives on the barrier at the same shared-memory offset in block `rank` of
-// the cluster (this block's own barrier when rank is its own). The default
-// .release.cta order suffices: what the arrival releases is this warp's
-// finished reads of a stage, which the next bulk copy overwrites. (With
-// .release.cluster every arrival took a MEMBAR.ALL.GPU.)
-__device__ __forceinline__ void mbar_arrive(unsigned bar, unsigned rank, unsigned own) {
-  if (rank == own) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-  } else {
-    asm volatile(
-        "{\n"
-        ".reg .b32 remote;\n"
-        "mapa.shared::cluster.u32 remote, %0, %1;\n"
-        "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
-        "}\n" ::"r"(bar),
-        "r"(rank)
-        : "memory");
-  }
+// What the arrival releases is this warp's finished reads of a stage, which
+// the next bulk copy overwrites.
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// `bytes` from global `src` into shared `dst` of every block of the cluster
-// (the same offset in each), completing on `bar` in each.
+// `bytes` from global `src` into shared `dst`, completing on `bar`.
 __device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
-  if constexpr (CLUSTER == 1) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-        : "memory");
-  } else {
-    const unsigned short mask = (1u << CLUSTER) - 1;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
   asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ---- warpgroup products ------------------------------------------------------
@@ -419,13 +378,9 @@ __device__ __forceinline__ bool is_head(const Params& p, int i) {
   return p.rows[i] < 8;  // alpha (1 row) and rgb (3)
 }
 
-// One thread: every chunk of every product part, tile after tile, each half
-// copied by one block of the cluster into both. Then it waits until every
-// consumer of the cluster has released every stage, so that no arrival on
-// this block's barriers is still on its way when the block exits.
+// One thread: every chunk of every product part, tile after tile.
 template <typename T>
 __device__ void produce(const Params& p, Ring ring, int tiles) {
-  const unsigned rank = cluster_rank();
   for (int t = 0; t < tiles; ++t) {
     for (int i = 0; i < p.n_parts; ++i) {
       if (is_head(p, i)) continue;
@@ -433,18 +388,13 @@ __device__ void produce(const Params& p, Ring ring, int tiles) {
       constexpr int CK = Mode<T>::KSTEP * Mode<T>::DEPTHS;
       const int bytes = chunk_bytes<T>(p.rows[i]);
       for (int c = 0; c < p.kp[i] / CK; ++c) {
-        const int half = bytes / CLUSTER;
         mbar_wait(ring.empty(), ring.phase ^ 1);
         mbar_expect_tx(ring.full(), bytes);
-        bulk_copy(ring.data() + rank * half, src + rank * half, half, ring.full());
+        bulk_copy(ring.data(), src, bytes, ring.full());
         src += bytes;
         ring.advance();
       }
     }
-  }
-  for (int s = 0; s < ring.stages; ++s) {
-    mbar_wait(ring.empty(), ring.phase ^ 1);
-    ring.advance();
   }
 }
 
@@ -458,7 +408,6 @@ __device__ __forceinline__ void gemm(float (&acc)[NOUT / 2], const T* A, int lda
   constexpr int NS = NOUT / SN;
   constexpr int CK = Mode<T>::KSTEP * Mode<T>::DEPTHS;
   const int lane = threadIdx.x & 31;
-  const unsigned own = cluster_rank();
   const int nch = kp / CK;
   float fresh[2][SN / 2];
 #pragma unroll
@@ -490,7 +439,7 @@ __device__ __forceinline__ void gemm(float (&acc)[NOUT / 2], const T* A, int lda
 #pragma unroll
     for (int q = 0; q < SN / 2; ++q) acc[(NS - 1) * (SN / 2) + q] += fresh[(NS - 1) & 1][q];
     __syncwarp();
-    if (lane < CLUSTER) mbar_arrive(ring.empty(), lane, own);
+    if (lane == 0) mbar_arrive(ring.empty());
     ring.advance();
   }
 }
@@ -699,7 +648,7 @@ __device__ void consume(const float* __restrict__ pts, const float* __restrict__
 }
 
 template <typename T, int W>
-__global__ void __launch_bounds__(THREADS, 1) __cluster_dims__(CLUSTER, 1, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                      float* __restrict__ out, int n, const __grid_constant__ Params p) {
   static_assert(W % 64 == 0, "W must be a multiple of 64");
@@ -710,18 +659,16 @@ __global__ void __launch_bounds__(THREADS, 1) __cluster_dims__(CLUSTER, 1, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(ring.bars + 8 * s, 1);                                   // the producer
-      mbar_init(ring.bars + 8 * (STAGES + s), CONSUMER_WARPS * CLUSTER);  // every consumer warp
+      mbar_init(ring.bars + 8 * s, 1);                         // the producer
+      mbar_init(ring.bars + 8 * (STAGES + s), CONSUMER_WARPS);  // every consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the initialised barriers are seen by the bulk copies (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  cluster_sync();  // no block copies into or arrives at another's barriers before this
+  __syncthreads();
 
-  // The blocks of a cluster walk the same number of tiles, with the padded
-  // count a multiple of CLUSTER: they share every chunk.
   const int tiles = (n + TILE - 1) / TILE;
-  const int padded = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
-  const int mine = (padded - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 
   if (threadIdx.x >= 128 * CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
@@ -737,7 +684,7 @@ __global__ void __launch_bounds__(THREADS, 1) __cluster_dims__(CLUSTER, 1, 1)
 }
 
 // Sets the kernel's shared memory and returns in *blocks how many of its
-// blocks the card holds at once (whole clusters), on the first call only.
+// blocks the card holds at once, on the first call only.
 template <typename T, int W>
 cudaError_t prepare(int* blocks) {
   static int resident = 0;
@@ -754,15 +701,15 @@ cudaError_t prepare(int* blocks) {
     if (err != cudaSuccess) return err;
     if (attr.numRegs * THREADS < CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128)
       return cudaErrorInvalidConfiguration;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(CLUSTER);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
     if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    resident = clusters * CLUSTER;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    resident = per_sm * sms;
   }
   *blocks = resident;
   return cudaSuccess;
@@ -775,8 +722,7 @@ cudaError_t launch(const float* pts, const float* dirs, float* out, int n, const
   cudaError_t err = prepare<T, W>(&resident);
   if (err != cudaSuccess) return err;
   const int tiles = (n + TILE - 1) / TILE;
-  const int padded = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
-  fused_mlp_kernel<T, W><<<min(padded, resident), THREADS, Smem<T, W>::BYTES, stream>>>(
+  fused_mlp_kernel<T, W><<<min(tiles, resident), THREADS, Smem<T, W>::BYTES, stream>>>(
       pts, dirs, out, n, p);
   return cudaGetLastError();
 }
@@ -864,13 +810,12 @@ extern "C" int fused_mlp_forward(const float* pts, const float* dirs, float* out
                    : (int)launch_t<float>(pts, dirs, out, n, W, p, s);
 }
 
-// The geometry the built kernel uses: points a block takes at a time, blocks
-// sharing each weight copy, the ring's stages in bf16 and f32 mode, and the
-// blocks the card holds at once at W=256 in each mode. Returns a cudaError_t.
-extern "C" int fused_mlp_geometry(int* tile, int* cluster, int* stages_bf16, int* stages_f32,
-                                  int* blocks_bf16, int* blocks_f32) {
+// The geometry the built kernel uses: points a block takes at a time, the
+// ring's stages in bf16 and f32 mode, and the blocks the card holds at once
+// at W=256 in each mode. Returns a cudaError_t.
+extern "C" int fused_mlp_geometry(int* tile, int* stages_bf16, int* stages_f32, int* blocks_bf16,
+                                  int* blocks_f32) {
   *tile = TILE;
-  *cluster = CLUSTER;
   *stages_bf16 = Mode<bf16>::STAGES;
   *stages_f32 = Mode<float>::STAGES;
   cudaError_t err = prepare<bf16, 256>(blocks_bf16);

@@ -284,16 +284,16 @@ def _check_operand(t: torch.Tensor, shape, what: str):
 
 
 def kernel_geometry() -> dict:
-    """The built kernel's points per block at a time, blocks of a cluster
-    sharing each weight copy, stages of its ring in bf16 and f32 mode, and
-    the blocks the card holds at once at W=256 in each mode."""
+    """The built kernel's points per block at a time, stages of its ring in
+    bf16 and f32 mode, and the blocks the card holds at once at W=256 in each
+    mode."""
+    keys = ("tile", "stages_bf16", "stages_f32", "blocks_bf16", "blocks_f32")
     fn = _kernels.load("fused_mlp").fused_mlp_geometry
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 6
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(keys)
     fn.restype = ctypes.c_int
-    vals = [ctypes.c_int() for _ in range(6)]
+    vals = [ctypes.c_int() for _ in keys]
     _kernels.check(fn(*[ctypes.byref(v) for v in vals]), "fused_mlp_geometry")
-    return dict(zip(("tile", "cluster", "stages_bf16", "stages_f32", "blocks_bf16",
-                     "blocks_f32"), (v.value for v in vals)))
+    return dict(zip(keys, (v.value for v in vals)))
 
 
 def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,

@@ -10,7 +10,7 @@ The kernel itself runs only on the card (tests/test_torch_cuda.py). Here:
   view layer where the kernel reads them, at small configs (W=64/128, D=8,
   F=4/10); read back by the kernel's descriptor arithmetic, each chunk
   holds the weights where the products look; it reads the weights anew on
-  every call and refuses wrong shapes;
+  every call and refuses a weight of the wrong shape or a missing layer;
 - 3xTF32 through the whole network at W=256, F=9 on 4,096 points stays
   within 1e-5 of ``fused_mlp_plain`` (its f32 function, evaluated in f64;
   2.9e-6 seen), far under the 1e-4 the kernel is held to on the card, while
@@ -203,12 +203,31 @@ def test_pack_reads_the_weights_of_each_call(dtype):
     assert not torch.equal(before, after)
 
 
-def test_pack_rejects_wrong_shapes():
-    cfg, weights, _, _ = packed(64, 4, torch.float32)
-    wrong = list(weights)
-    wrong[2] = wrong[2][:, :-1]
+def _trunk_short_a_column(w, cfg):
+    w[2] = w[2][:, :-1]
+
+
+def _skip_short_a_row(w, cfg):
+    w[2 * 5] = w[2 * 5][:-1]
+
+
+def _views_without_dirs(w, cfg):
+    w[2 * (cfg.D + 2)] = w[2 * (cfg.D + 2)][:, :cfg.W]
+
+
+def _one_layer_short(w, cfg):
+    del w[-2:]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wrong", [_trunk_short_a_column, _skip_short_a_row, _views_without_dirs,
+                                   _one_layer_short])
+def test_pack_rejects_wrong_shapes(wrong, dtype):
+    cfg, weights, _, _ = packed(64, 4, dtype)
+    weights = list(weights)
+    wrong(weights, cfg)
     with pytest.raises(ValueError, match="weight shapes"):
-        fused_mlp.pack_weights(wrong, cfg, torch.float32)
+        fused_mlp.pack_weights(weights, cfg, dtype)
 
 
 def tf32_rna(x):
