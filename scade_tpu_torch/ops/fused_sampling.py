@@ -1,20 +1,24 @@
-"""Inverse-CDF sampling: kernel K2 and its plain versions.
+"""Inverse-CDF sampling: kernel K2, its backward kernel, and their plain versions.
 
 Replaces the Pallas kernel ``scade_tpu/ops/fused_sampling.py::_lookup_kernel``
-and the CDF build the JAX package runs before it. The CUDA source is
-``csrc/fused_sampling.cu``; its header says what bounds it on the card
-(bytes: (2M - 1 + 2S) * 4 per ray) and how one warp per ray builds the CDF in
-shared memory and inverts it, reading strided weights and broadcast draws in
-place.
+and the CDF build the JAX package runs before it; the backward kernel is the
+counterpart of its ``_bwd`` (:172), a VJP of the plain ``sample_pdf`` that
+XLA runs in a fixed order. The CUDA source is ``csrc/fused_sampling.cu``;
+its header says what bounds each kernel on the card (bytes) and how one warp
+per ray builds the CDF in shared memory, inverts it, and for the backward
+adds each draw's gradient into the bins and CDF entries in a fixed order,
+reading strided weights and broadcast draws in place.
 
 ``fused_sample_pdf`` is the entry point. For CUDA tensors it launches the
-kernel (``sample_pdf_cuda``) and raises if the launch fails; only for CPU
-tensors does it take the plain ``sampling.sample_pdf``, which is also the
-oracle. The kernel sums the CDF in another order than ``torch.cumsum``;
-``cdf_kernel_order`` builds it in the kernel's order with torch ops, so that
-``sampling.lookup(cdf_kernel_order(w), bins, u)`` is the kernel's function
-bit for bit (tests and ``chip_smoke.py`` use it; the main path does not).
-The backward recomputes through the plain ``sample_pdf``.
+kernels (``sample_pdf_cuda`` forward, ``sample_pdf_backward_cuda`` backward)
+and raises if a launch fails; only for CPU tensors does it take the plain
+``sampling.sample_pdf`` and autograd through it, which is also the oracle.
+The kernels sum in another order than ``torch.cumsum`` and autograd;
+``cdf_kernel_order`` builds the CDF in the kernel's order with torch ops, so
+that ``sampling.lookup(cdf_kernel_order(w), bins, u)`` is the forward
+kernel's function bit for bit, and ``sample_pdf_backward_kernel_order``
+repeats the backward kernel's arithmetic bit for bit (tests and
+``chip_smoke.py`` use them; the main path does not).
 """
 
 from __future__ import annotations
@@ -41,33 +45,53 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _backward_entry():
+    fn = _kernels.load("fused_sampling").sample_pdf_backward
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(what, tensors, rows_per_warp):
+    """The launchers' argument checks: ``tensors`` are bins (R, M), weights
+    (R, M-1), then tensors of shape (R, S); ``rows_per_warp`` rows of M
+    floats a warp in shared memory. Every check but the device's comes
+    first, so that each shows on CPU tensors. Returns R, M, S."""
+    names = ("bins", "weights", "u", "g")[:len(tensors)]
+    if any(t.dim() != 2 for t in tensors):
+        raise ValueError(f"{what}: {', '.join(names)} must be 2-D, got "
+                         f"{', '.join(str(t.dim()) for t in tensors)} dims")
+    bins, weights, u = tensors[:3]
+    R, M = bins.shape
+    S = u.shape[1]
+    if weights.shape != (R, M - 1) or any(t.shape != (R, S) for t in tensors[2:]):
+        raise ValueError(f"{what}: shapes " + ", ".join(
+            f"{n} {tuple(t.shape)}" for n, t in zip(names, tensors))
+            + "; expected (R, M), (R, M-1), then (R, S)")
+    if M < 2:
+        raise ValueError(f"{what}: M={M} bins, needs at least 2")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{what}: needs float32, got "
+                         f"{', '.join(str(t.dtype) for t in tensors)}")
+    if any(t.stride(1) != 1 for t in tensors):
+        raise ValueError(f"{what}: needs inner stride 1, got "
+                         f"{', '.join(str(t.stride(1)) for t in tensors)}")
+    if not (bins.is_cuda and all(t.device == bins.device for t in tensors)):
+        raise ValueError(f"{what}: needs CUDA tensors on one device, got "
+                         f"{', '.join(str(t.device) for t in tensors)}")
+    if WARPS * rows_per_warp * M * 4 > SMEM_LIMIT:
+        raise ValueError(f"{what}: M={M} bins exceed shared memory")
+    return R, M, S
+
+
 def sample_pdf_cuda(bins, weights, u):
     """Launches kernel K2 on the current stream: bins (R, M), weights
     (R, M-1), u (R, S), each float32 on the card with inner stride 1 and any
     row stride (0 for a draw row shared by all rays) → (R, S).
     ``sample_pdf_cuda.launches`` counts the launches."""
-    if bins.dim() != 2 or weights.dim() != 2 or u.dim() != 2:
-        raise ValueError("sample_pdf_cuda: bins, weights and u must be 2-D, got "
-                         f"{bins.dim()}, {weights.dim()}, {u.dim()} dims")
-    R, M = bins.shape
-    S = u.shape[1]
-    if weights.shape != (R, M - 1) or u.shape[0] != R:
-        raise ValueError(f"sample_pdf_cuda: shapes bins {tuple(bins.shape)}, weights "
-                         f"{tuple(weights.shape)}, u {tuple(u.shape)}; expected (R, M), "
-                         "(R, M-1), (R, S)")
-    if M < 2:
-        raise ValueError(f"sample_pdf_cuda: M={M} bins, needs at least 2")
-    if not bins.dtype == weights.dtype == u.dtype == torch.float32:
-        raise ValueError(f"sample_pdf_cuda: needs float32, got {bins.dtype}, {weights.dtype}, "
-                         f"{u.dtype}")
-    if not bins.stride(1) == weights.stride(1) == u.stride(1) == 1:
-        raise ValueError("sample_pdf_cuda: needs inner stride 1, got "
-                         f"{bins.stride(1)}, {weights.stride(1)}, {u.stride(1)}")
-    if not (bins.is_cuda and bins.device == weights.device == u.device):
-        raise ValueError("sample_pdf_cuda: needs CUDA tensors on one device, got "
-                         f"{bins.device}, {weights.device}, {u.device}")
-    if WARPS * 2 * M * 4 > SMEM_LIMIT:
-        raise ValueError(f"sample_pdf_cuda: M={M} bins exceed shared memory")
+    R, M, S = _check_inputs("sample_pdf_cuda", (bins, weights, u), 2)
     out = torch.empty((R, S), dtype=torch.float32, device=bins.device)
     if R == 0 or S == 0:
         return out
@@ -83,26 +107,65 @@ def sample_pdf_cuda(bins, weights, u):
 sample_pdf_cuda.launches = 0
 
 
-def cdf_kernel_order(weights):
-    """The CDF of ``sampling._cdf_from_weights`` summed in the kernel's order:
-    lane l of a warp owns the segment [l L, (l+1) L) of the M-1 weights,
-    L = ceil((M-1) / 32); segment sums, a butterfly for the total, the
-    divide, segment sums of the quotients, a Kogge-Stone scan of those for
-    each lane's offset, then serial sums from the offsets. Each step is an
-    f32 add or divide, as the kernel's round-to-nearest intrinsics.
-    weights (..., M-1) → (..., M)."""
+def sample_pdf_backward_cuda(bins, weights, u, g, need_bins=False, need_u=False):
+    """Launches K2's backward kernel on the current stream: the VJP of the
+    forward kernel's function at (bins, weights, u) for the upstream
+    gradient g (R, S), as ``sample_pdf_backward_kernel_order`` computes it.
+    Takes what ``sample_pdf_cuda`` takes, and g likewise. Returns
+    (grad_bins, grad_weights, grad_u), contiguous, grad_bins and grad_u None
+    unless asked for. ``sample_pdf_backward_cuda.launches`` counts the
+    launches."""
+    R, M, S = _check_inputs("sample_pdf_backward_cuda", (bins, weights, u, g), 5)
+
+    def empty(n):
+        return torch.empty((R, n), dtype=torch.float32, device=bins.device)
+
+    grad_w = empty(M - 1)
+    grad_bins = empty(M) if need_bins else None
+    grad_u = empty(S) if need_u else None
+    if R == 0:
+        return grad_bins, grad_w, grad_u
+    stream = torch._C._cuda_getCurrentRawStream(grad_w.device.index)
+    status = _backward_entry()(
+        bins.data_ptr(), bins.stride(0), weights.data_ptr(), weights.stride(0),
+        u.data_ptr(), u.stride(0), g.data_ptr(), g.stride(0), grad_w.data_ptr(),
+        0 if grad_bins is None else grad_bins.data_ptr(),
+        0 if grad_u is None else grad_u.data_ptr(), R, M, S, stream)
+    _kernels.check(status, "sample_pdf_backward")
+    sample_pdf_backward_cuda.launches += 1
+    return grad_bins, grad_w, grad_u
+
+
+sample_pdf_backward_cuda.launches = 0
+
+
+def _lanes(x, L):
+    """(..., n) → (..., 32, L): lane l's segment [l L, (l+1) L), padded
+    with zeros, which add exactly."""
+    return torch.nn.functional.pad(x, (0, LANES * L - x.shape[-1])).unflatten(-1, (LANES, L))
+
+
+def _butterfly(s):
+    """The kernel's xor-shuffle sum over the lanes (..., 32): every lane
+    ends with the same total; lane 0's is returned, (..., 1)."""
+    lane = torch.arange(LANES, device=s.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[..., lane ^ off]
+    return s[..., :1]
+
+
+def _cdf_kernel_order_parts(weights):
+    """``cdf_kernel_order``, and the pdf's lane segments (..., 32, L) and the
+    total of w' (..., 1) that the kernels compute on the way."""
     n = weights.shape[-1]
     L = -(-n // LANES)
-    # (..., 32, L): a lane's segment, padded with zeros, which add exactly
-    seg = torch.nn.functional.pad(weights + 1e-5, (0, LANES * L - n)).unflatten(-1, (LANES, L))
-    lane = torch.arange(LANES, device=weights.device)
+    seg = _lanes(weights + 1e-5, L)
     s = torch.zeros_like(seg[..., 0])
     for j in range(L):
         s = s + seg[..., j]
-    for off in (16, 8, 4, 2, 1):
-        s = s + s[..., lane ^ off]
-    pdf = seg / s[..., :1, None]
-    t = torch.zeros_like(s)
+    s = _butterfly(s)
+    pdf = seg / s[..., None]
+    t = torch.zeros_like(seg[..., 0])
     for j in range(L):
         t = t + pdf[..., j]
     for off in (1, 2, 4, 8, 16):
@@ -113,7 +176,82 @@ def cdf_kernel_order(weights):
         c = c + pdf[..., j]
         cdf.append(c)
     cdf = torch.stack(cdf, -1).flatten(-2)[..., :n]
-    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1), pdf, s
+
+
+def cdf_kernel_order(weights):
+    """The CDF of ``sampling._cdf_from_weights`` summed in the kernel's order:
+    lane l of a warp owns the segment [l L, (l+1) L) of the M-1 weights,
+    L = ceil((M-1) / 32); segment sums, a butterfly for the total, the
+    divide, segment sums of the quotients, a Kogge-Stone scan of those for
+    each lane's offset, then serial sums from the offsets. Each step is an
+    f32 add or divide, as the kernel's round-to-nearest intrinsics.
+    weights (..., M-1) → (..., M)."""
+    return _cdf_kernel_order_parts(weights)[0]
+
+
+def sample_pdf_backward_kernel_order(bins, weights, u, g):
+    """The VJP of ``lookup(cdf_kernel_order(weights), bins, u)`` for the
+    upstream gradient g, in the backward kernel's order of operations, with
+    torch ops: bins (R, M), weights (R, M-1), u and g (R, S) →
+    (grad_bins, grad_weights, grad_u). Per draw, with below/above, the
+    interpolant t and the guarded denom of the forward:
+      gu = g (b[above] - b[below]) / denom           → grad_u
+      b[below] += g - g t,  b[above] += g t           (bins)
+      cdf[below] += gu t - gu,  cdf[above] += -gu t   (or cdf[below] += -gu
+                                                       where the guard fired)
+    Each bin's and CDF entry's sum runs over the draws in index order, a
+    draw's below before its above (the kernel: the lane that owns the entry
+    walks the draws); cdf[0] takes none. Then, on the lanes' segments of
+    the CDF entries 1..M-1, the reverse scan to grad_pdf (segment sums from
+    the top down, a Kogge-Stone suffix scan of those, serial sums from each
+    lane's offset), d = sum grad_pdf pdf (each lane's terms from the top
+    down, then a butterfly), and grad_w = (grad_pdf - d) / sum(w')."""
+    R, M = bins.shape
+    n = M - 1
+    cdf, pdf, s = _cdf_kernel_order_parts(weights)
+    L = pdf.shape[-1]
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=M - 1)
+    cb, ca = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bb, ba = torch.gather(bins, -1, below), torch.gather(bins, -1, above)
+    denom = ca - cb
+    guard = denom < 1e-5
+    denom = torch.where(guard, torch.ones_like(denom), denom)
+    t = (u - cb) / denom
+    gu = (g * (ba - bb)) / denom
+    q = gu * t
+    zero = torch.zeros_like(q)
+    g_cb = torch.where(guard, -gu, q - gu)
+    g_ca = torch.where(guard, zero, -q)
+    g_ba = g * t
+    g_bb = g - g_ba
+    idx = torch.arange(M, device=bins.device)
+    gc = torch.zeros_like(bins)
+    gb = torch.zeros_like(bins)
+    for j in range(u.shape[-1]):
+        at_b, at_a = idx == below[:, j:j + 1], idx == above[:, j:j + 1]
+        gc = torch.where(at_b, gc + g_cb[:, j:j + 1], gc)
+        gc = torch.where(at_a, gc + g_ca[:, j:j + 1], gc)
+        gb = torch.where(at_b, gb + g_bb[:, j:j + 1], gb)
+        gb = torch.where(at_a, gb + g_ba[:, j:j + 1], gb)
+    seg = _lanes(gc[:, 1:], L)  # lane l's CDF entries 1 + [l L, (l+1) L)
+    tot = torch.zeros_like(seg[..., 0])
+    for j in reversed(range(L)):
+        tot = tot + seg[..., j]
+    for off in (1, 2, 4, 8, 16):
+        tot = torch.cat([tot[..., :-off] + tot[..., off:], tot[..., -off:]], -1)
+    c = torch.cat([tot[..., 1:], torch.zeros_like(tot[..., :1])], -1)
+    d = torch.zeros_like(c)
+    g_pdf = [None] * L
+    for j in reversed(range(L)):
+        c = c + seg[..., j]
+        g_pdf[j] = c
+        d = d + c * pdf[..., j]
+    g_pdf = torch.stack(g_pdf, -1)
+    g_w = ((g_pdf - _butterfly(d)[..., None]) / s[..., None]).flatten(-2)[..., :n]
+    return gb, g_w, gu
 
 
 class _FusedSamplePdf(torch.autograd.Function):
@@ -127,6 +265,11 @@ class _FusedSamplePdf(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
+        need_bins, need_w, need_u = ctx.needs_input_grad
+        if saved[1].device.type != "cpu":
+            grad_bins, grad_w, grad_u = sample_pdf_backward_cuda(
+                *saved, g.contiguous(), need_bins=need_bins, need_u=need_u)
+            return grad_bins, grad_w if need_w else None, grad_u
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
@@ -137,7 +280,7 @@ class _FusedSamplePdf(torch.autograd.Function):
 
 
 def fused_sample_pdf(bins, weights, u):
-    """``sample_pdf`` through kernel K2: bins (R, M), weights (R, M-1),
-    u (R, S) → (R, S), as the renderer passes them (on CPU tensors the plain
-    version also takes more leading dimensions)."""
+    """``sample_pdf`` through kernel K2 and its backward kernel: bins (R, M),
+    weights (R, M-1), u (R, S) → (R, S), as the renderer passes them (on CPU
+    tensors the plain version also takes more leading dimensions)."""
     return _FusedSamplePdf.apply(bins, weights, u)

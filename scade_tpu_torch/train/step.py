@@ -27,8 +27,15 @@ each holds its rows of the sharded layers and of their Adam moments. The
 loss is scaled by 1/n_data; a sharded tensor's grad is summed over the data
 group; a replicated one's (the heads, scales, shifts) is summed over every
 rank and divided by n_model, which in exact arithmetic is the data group's
-sum and leaves the copies on a data row's ranks bit-equal, where a
-backward's atomics could have made them differ in the last bit.
+sum and leaves the copies on a data row's ranks bit-equal by construction:
+every rank takes the same all-reduced value, whether or not the ranks'
+own backwards agree to the last bit.
+
+On one device the step with the kernels on is reproducible: the same
+state, scene and generator give the same grads and parameters bit for bit,
+on the card too (K2's backward kernel adds in a fixed order; chip_smoke.py's
+repro phase checks the rest of the step). With ``use_fused=False`` the plain
+``sample_pdf``'s gathers add their backward with atomics on the card.
 """
 
 from __future__ import annotations

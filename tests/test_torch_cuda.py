@@ -26,17 +26,109 @@ each. K2 2e-6/1e-6 where the
 order of its sums cannot matter: against the plain lookup of the CDF summed
 in the kernel's order (cdf_kernel_order), and against the plain sample_pdf
 on dyadic weights, which every order sums exactly; its strided and
-zero-stride inputs exactly as their contiguous copies; its gradient 1e-5
-(the plain backward twice, its atomic adds in a fixed order). The renderer
-as in chip_smoke.py.
+zero-stride inputs exactly as their contiguous copies. K2's backward kernel
+bit for bit against sample_pdf_backward_kernel_order, the same on every
+launch (it adds in a fixed order, with no atomics), and against autograd
+through the plain sample_pdf at rtol 1e-4 with an atol of 1e-6 of the
+largest entry on dyadic weights; on random weights with an atol of 1e-4 of
+the largest entry, on the draws that f32 can decide (``decidable``; the
+plain backward's own atomics add in no fixed order there). A resumed CLI run
+on the card equals a straight one leaf by leaf. The renderer as in
+chip_smoke.py.
 """
 
+import os
+import subprocess
+import sys
+
+import numpy as np
 import pytest
 import torch
 
+from scade_tpu_torch import cli
 from scade_tpu_torch.models.nerf import NeRF, NeRFConfig
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.render import renderer
+
+
+def dyadic(rng, R, M):
+    """Weights whose CDF every order of sums builds exactly (as
+    tests/test_torch_kernels.py::dyadic_weights): w + 1e-5 on multiples of
+    2^-12, each row summing to a power of two."""
+    k = rng.integers(1, 64, (R, M - 1))
+    k[:, -1] += (1 << int(np.ceil(np.log2(k.sum(-1).max())))) - k.sum(-1)
+    v = (k * 2.0**-12).astype(np.float32)
+    w = (v - np.float32(1e-5)).astype(np.float32)
+    assert ((w + np.float32(1e-5)) == v).all()
+    return w
+
+
+def guard_row(M, exact):
+    """A row of weights with one heavy interval: the others' CDF gaps are
+    under 1e-5, so that draws in them take the 1e-5 guard (denom 1). Exact:
+    dyadic, 1/2^17 a gap; else zeros and a 1."""
+    n = M - 1
+    if not exact:
+        w = np.zeros(n, np.float32)
+        w[n // 2] = 1.0
+        return w
+    k = np.ones(n, np.int64)
+    k[n // 2] = 2**17 - (n - 1)
+    v = (k * 2.0**-12).astype(np.float32)
+    w = (v - np.float32(1e-5)).astype(np.float32)
+    assert ((w + np.float32(1e-5)) == v).all()
+    return w
+
+
+def backward_case(M, R, S, exact, seed=0):
+    """Seeded numpy inputs of K2's backward: strictly ascending bins, random
+    or dyadic (``exact``) weights, draws with 0, 1e-8, 1 - 1e-7, 0.5 and 1
+    first, row 1 (M > 2) a guard_row with 5 draws in its narrow gaps, and an
+    upstream gradient g ~ N(0, 1)."""
+    rng = np.random.default_rng(seed + M + 1000 * exact)
+    bins = (0.5 + np.cumsum(rng.uniform(0.005, 0.06, (R, M)), -1)).astype(np.float32)
+    w = dyadic(rng, R, M) if exact else rng.uniform(0, 1, (R, M - 1)).astype(np.float32)
+    u = rng.uniform(0, 1, (R, S)).astype(np.float32)
+    edge = [0.0, 1e-8, 1.0 - 1e-7, 0.5, 1.0][:S]
+    u[:, :len(edge)] = edge
+    if M > 2 and R > 1 and S >= 10:
+        w[1] = guard_row(M, exact)
+        u[1, 5:10] = (np.arange(1, 6) + 0.5) / 2**17
+    g = rng.standard_normal((R, S)).astype(np.float32)
+    return bins, w, u, g
+
+
+def decidable(bins, w, u, ulps=16):
+    """1 on the draws where sample_pdf's gradient is well-conditioned in f32,
+    0 elsewhere; a float tensor of u's shape. Two f32 CDFs summed in other
+    orders differ by a few ulps of their entries, and the gradient is a
+    ratio of CDF differences that jumps at every CDF entry and at the 1e-5
+    guard. So a draw counts only where, by the CDF summed in f64 and with
+    ``ulps`` ulps of the entries as the error: no entry but cdf[0] lies
+    within the error of u; the guard's decision is further than the error
+    from 1e-5; and the error is at most 1e-4 of the denominator."""
+    cdf = sampling._cdf_from_weights(w.double())
+    u = u.double()
+    inds = torch.searchsorted(cdf, u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    ca = torch.gather(cdf, -1, above)
+    denom = ca - torch.gather(cdf, -1, below)
+    err = ulps * 2.0**-24 * ca
+    clear = (denom - 1e-5).abs() > err
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    near = ((cdf[..., 1:, None] - u[..., None, :]).abs() <= ulps * 2.0**-24
+            * cdf[..., 1:, None]).any(-2)
+    return (clear & (err <= 1e-4 * denom) & ~near).float()
+
+
+def grads_close(got, ref, exact):
+    """The backward's bound against another order of its sums (see the
+    module docstring): rtol 1e-4, atol 1e-6 (exact CDF) or 1e-4 of the
+    largest entry, at least 1."""
+    for a, b in zip(got, ref):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=(1e-6 if exact else 1e-4) * scale)
 
 
 def bf16_agrees(err, tol):
@@ -133,23 +225,105 @@ def test_k2_matches_plain(cuda, R, S, M):
     torch.testing.assert_close(fused_sampling.sample_pdf_cuda(bins, w, ub),
                                fused_sampling.sample_pdf_cuda(bins, w, ub.contiguous()),
                                atol=0, rtol=0)
-    # through the autograd Function: kernel forward, plain backward
-    wt = w.clone().requires_grad_(True)
-    out = fused_sampling.fused_sample_pdf(bins, wt, u)
-    torch.testing.assert_close(out, got, atol=0, rtol=0)
+    # through the autograd Function: kernel forward, backward kernel, the
+    # same on every run and exactly its torch transcription; near the plain
+    # backward on the draws f32 can decide
+    mask = decidable(bins, w, u)
+    grads = []
+    for _ in range(2):
+        wt = w.clone().requires_grad_(True)
+        out = fused_sampling.fused_sample_pdf(bins, wt, u)
+        torch.testing.assert_close(out, got, atol=0, rtol=0)
+        before = fused_sampling.sample_pdf_backward_cuda.launches
+        (out * mask).sum().backward()
+        assert fused_sampling.sample_pdf_backward_cuda.launches == before + 1
+        grads.append(wt.grad)
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], fused_sampling.sample_pdf_backward_kernel_order(
+        bins, w, u, mask)[1])
     w2 = w.clone().requires_grad_(True)
-    # the same backward twice; the gathers' backward adds with atomics, in an
-    # order that changes from run to run unless deterministic algorithms are
-    # on (at M=2 the weights' gradient is 0 in exact arithmetic, and what the
-    # atomics leave of the cancelling terms reached 1.5e-5 at 1,000 rays on an H100)
-    deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        out.sum().backward()
-        sampling.sample_pdf(bins, w2, u).sum().backward()
-    finally:
-        torch.use_deterministic_algorithms(deterministic)
-    torch.testing.assert_close(wt.grad, w2.grad, atol=1e-5, rtol=0)
+    (sampling.sample_pdf(bins, w2, u) * mask).sum().backward()
+    grads_close([grads[0]], [w2.grad], exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [63, 191, 2])
+@pytest.mark.parametrize("R,S", [(1000, 128), (37, 128), (5, 3)])
+def test_k2_backward_kernel(cuda, R, S, M):
+    """The backward kernel through its launcher: every gradient bit for bit
+    its torch transcription (sample_pdf_backward_kernel_order) run on the
+    card, two launches equal, the weights' [:, 1:-1] view and a zero-stride
+    draw row read in place, and against autograd through the plain
+    sample_pdf (grads_close), on dyadic weights with every draw and on
+    random ones where f32 can decide."""
+    for exact in (True, False):
+        b, w, u, g = backward_case(M, R, S, exact)
+        bins, u, g = (torch.from_numpy(a).to(cuda) for a in (b, u, g))
+        full = torch.from_numpy(np.pad(w, ((0, 0), (1, 1)), constant_values=3.0)).to(cuda)
+        wv = full[:, 1:-1]
+        before = fused_sampling.sample_pdf_backward_cuda.launches
+        got = fused_sampling.sample_pdf_backward_cuda(bins, wv, u, g, need_bins=True,
+                                                      need_u=True)
+        assert fused_sampling.sample_pdf_backward_cuda.launches == before + 1
+        order = fused_sampling.sample_pdf_backward_kernel_order(bins, wv, u, g)
+        for a, ref in zip(got, order):
+            assert a.shape == ref.shape and torch.equal(a, ref)
+        again = fused_sampling.sample_pdf_backward_cuda(bins, wv, u, g, need_bins=True,
+                                                        need_u=True)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        only_w = fused_sampling.sample_pdf_backward_cuda(bins, wv.contiguous(), u, g)
+        assert only_w[0] is None and only_w[2] is None and torch.equal(only_w[1], got[1])
+        ub = u[:1].expand(R, S)
+        assert all(torch.equal(a, c) for a, c in zip(
+            fused_sampling.sample_pdf_backward_cuda(bins, wv, ub, g, True, True),
+            fused_sampling.sample_pdf_backward_cuda(bins, wv, ub.contiguous(), g, True, True)))
+        gm = g if exact else g * decidable(bins, wv, u)
+        leaves = [t.clone().requires_grad_(True) for t in (bins, wv, u)]
+        ref = torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, gm)
+        grads_close(fused_sampling.sample_pdf_backward_cuda(bins, wv, u, gm, True, True), ref,
+                    exact)
+
+
+@pytest.mark.cuda
+def test_cli_resume_on_the_card_is_bit_equal(cuda, tmp_path, monkeypatch):
+    """tests/test_torch_cli.py::test_resume_is_bit_equal_to_a_straight_run on
+    --device cuda: 12 + 12 steps equal 24 straight, every leaf of the .tar."""
+    subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(__file__), "..", "tools",
+                                      "make_synthetic_scene.py"),
+         str(tmp_path / "scene"), "--H", "32", "--W", "48", "--K", "2", "--n_train", "2",
+         "--n_val", "1", "--n_test", "1", "--n_video", "0"],
+        check=True, capture_output=True)
+    monkeypatch.chdir(tmp_path)
+
+    def train(expname, *flags):
+        cli.main("scannet", [
+            "train", "--data_dir", str(tmp_path), "--scene_id", "scene", "--ckpt_dir",
+            str(tmp_path / "ckpt"), "--expname", expname, "--N_samples", "8", "--N_importance",
+            "16", "--multires", "4", "--N_rand", "64", "--chunk", "2048", "--num_hypothesis",
+            "2", "--cimle_dir", "dump", "--device", "cuda", "--i_img", "1000000", "--i_print",
+            "1000000", *flags])
+
+    train("straight", "--num_iterations", "24", "--i_weights", "24")
+    train("resumed", "--num_iterations", "12", "--i_weights", "12")
+    train("resumed", "--num_iterations", "24", "--i_weights", "12")
+    a = torch.load(tmp_path / "ckpt" / "straight" / "000024.tar")
+    b = torch.load(tmp_path / "ckpt" / "resumed" / "000024.tar")
+
+    def leaves(x, prefix=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from leaves(v, f"{prefix}/{k}")
+        else:
+            yield prefix, x
+
+    la, lb = dict(leaves(a)), dict(leaves(b))
+    assert la.keys() == lb.keys() and a["global_step"] == 24
+    for key, value in la.items():
+        if torch.is_tensor(value):
+            assert torch.equal(value, lb[key]), key
+        else:
+            assert value == lb[key], key
 
 
 @pytest.mark.cuda
