@@ -103,7 +103,8 @@ comparing K1 builds of two trees on one card):
           TF32 off); its files, finite losses, the sources' order; step, recache
           and host read times, peak memory. Then (line prior_dp) its
           checkpoint's first step at global batch 4 on 2 ranks (torchrun,
-          gloo on the one card) against the 1-rank step and the f64 step, and
+          gloo on the one card; the ranks' states bit-equal) against the
+          1-rank step and the f64 step, and
           the baseline model (ResNeXt101 + AuxiNetV2): card f32 against the
           CPU, a train-mode forward and backward with both criteria at batch 4
 
@@ -116,8 +117,9 @@ are N cards), for even N the tp phase on N ranks (N/2 x 2), and the prior's
 first step over N ranks from seeded weights (line prior_dp; N divides 4),
 and prints no result line; with --prior-only
 the device, prior_train, prior and prior_pretrain phases, and no result
-line; with --quality-only the device phase, then line quality (see
-QUALITY_SCENE), and no result line.
+line; with --prior-dp-repeat N the device phase and N prior_pretrain phases
+(N lines prior_dp), and no result line; with --quality-only the device
+phase, then line quality (see QUALITY_SCENE), and no result line.
 """
 
 from __future__ import annotations
@@ -273,9 +275,11 @@ PRETRAIN_ARGS = ["--epochs", "1", "--batchsize", "4", "--num_samples", "20",
 # card) against the 1-rank step, f32 without TF32, from the same weights, z
 # and draws. Each loss within PRETRAIN_DP_LOSS_REL of the total loss; the
 # BatchNorm running statistics within PRETRAIN_DP_BN_REL of each tensor's
-# largest magnitude; the update by the prior_train phase's rule: the 2-rank
-# update no further from the same step in f64 than PRIOR_STEP_WITNESS_RATIO
-# times the 1-rank f32 update is (L2 over all parameters).
+# largest magnitude; the ranks' states after the step bit-equal; the update
+# by the prior_train phase's rule: the 2-rank update no further from the same
+# step in f64 than PRIOR_STEP_WITNESS_RATIO times the 1-rank f32 update is
+# (L2 over all parameters). --prior-dp-repeat prints both distances for N
+# fresh pretraining runs.
 PRETRAIN_DP_LOSS_REL, PRETRAIN_DP_BN_REL = 1e-3, 1e-4
 # Steps each rank times after the checked one.
 PRETRAIN_DP_TIMED = 1
@@ -2571,8 +2575,8 @@ def pretrain_argv(root: str, seed: int) -> list:
 def prior_dp_worker(case_path: str, out_dir: str) -> int:
     """One rank of the prior's 2-rank check (torchrun): its block of the
     case's global batch through ``train_step(ranks=...)``, then
-    PRETRAIN_DP_TIMED more steps timed. Rank 0 saves the state after the
-    first step; every rank its losses and step times."""
+    PRETRAIN_DP_TIMED more steps timed. Every rank saves its state after the
+    first step, its losses and step times."""
     from scade_tpu_torch.parallel import dist
 
     ranks, device, backend = dist.init_from_env("cuda")
@@ -2594,9 +2598,8 @@ def prior_dp_worker(case_path: str, out_dir: str) -> int:
             total, losses = prior_train.train_step(m, opt, shifts, batch, z, draws, tc, ranks)
             rec = dict(rank=ranks.rank, backend=backend, total=float(total),
                        losses={k: float(v) for k, v in losses.items()})
-            if ranks.primary:
-                torch.save({k: v.detach().cpu() for k, v in m.state_dict().items()},
-                           os.path.join(out_dir, "state.pt"))
+            torch.save({k: v.detach().cpu() for k, v in m.state_dict().items()},
+                       os.path.join(out_dir, f"state{ranks.rank}.pt"))
             step_ms = []
             for _ in range(PRETRAIN_DP_TIMED):
                 dist.barrier()
@@ -2639,7 +2642,7 @@ def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
         raise RuntimeError(f"prior_dp: torchrun exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(world)]
-    two = torch.load(os.path.join(out_dir, "state.pt"))
+    two, *others = (torch.load(os.path.join(out_dir, f"state{r}.pt")) for r in range(world))
     one = prior_step_on("cuda", state, shifts, batch, z, draws)
     f64 = prior_step_on("cuda", state, shifts, batch, z, draws, torch.float64)
     total = abs(one["losses"]["total_loss"])
@@ -2653,6 +2656,8 @@ def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
     bn_err = max((two[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30)
                  for k, v in one["state"].items() if k.endswith(("running_mean", "running_var")))
     checks = {"ranks report one loss": all(r["losses"] == recs[0]["losses"] for r in recs),
+              "ranks hold one state": all(torch.equal(st[k], v) for st in others
+                                          for k, v in two.items()),
               "losses = 1 rank's": loss_err <= PRETRAIN_DP_LOSS_REL,
               "BN statistics = 1 rank's": bn_err <= PRETRAIN_DP_BN_REL,
               "update within the f64 witness": dist_f64["ranks"]
@@ -2668,7 +2673,8 @@ def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
                   update_witness_ratio=PRIOR_STEP_WITNESS_RATIO), checks=checks)
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
-        raise RuntimeError(f"prior_dp: failed {bad}")
+        raise RuntimeError(f"prior_dp: failed {bad}: update's L2 distance from f64 {dist_f64}, "
+                           f"loss error {loss_err:.3g}, BatchNorm error {bn_err:.3g}")
     return checks
 
 
@@ -2926,6 +2932,10 @@ def main() -> int:
                         help="run the device phase, then the prior_train, prior and "
                              "prior_pretrain phases, and print no result line: for the prior's "
                              "paths alone")
+    parser.add_argument("--prior-dp-repeat", type=int, default=0, metavar="N",
+                        help="run the device phase, then the prior_pretrain phase N times "
+                             "(each a fresh pretraining run and its 2-rank check), and print "
+                             "no result line: for the spread of line prior_dp's distances")
     parser.add_argument("--quality-only", action="store_true",
                         help="run the device phase, then train and score the port on "
                              "BASELINE.md round 5's scene (4 runs of 4,000 steps and a "
@@ -2967,6 +2977,15 @@ def main() -> int:
         return 0
     if args.prior_only:
         phase_prior_paths(args.seed)
+        return 0
+    for _ in range(args.prior_dp_repeat):
+        tmp = tempfile.mkdtemp(prefix="scade_pretrain_")
+        try:
+            phase_prior_pretrain(tmp, args.seed)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if args.prior_dp_repeat:
         return 0
     if args.quality_only:
         phase_quality()
