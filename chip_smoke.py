@@ -2,11 +2,13 @@
 """Drives the PyTorch/CUDA port (scade_tpu_torch) on one NVIDIA card and checks it.
 
     python3 chip_smoke.py [--seed N] [--steps N]
-                          [--k1-only | --prior-only | --quality-only | --dp-only N]
+                          [--k1-only | --k2-only | --prior-only | --quality-only
+                           | --dp-only N]
 
 Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
-at once), then prints one line per phase (with --k1-only the first two, for
-comparing K1 builds of two trees on one card):
+at once), then prints one line per phase (with --k1-only the device and k1
+lines, with --k2-only the device and k2 lines, for comparing a kernel's
+builds of two trees on one card):
 
   device  card name and power limit (nvidia-smi), build time, K1's registers,
           spills and warnings (ptxas), its tile, ring stages and resident blocks, and
@@ -28,7 +30,9 @@ comparing K1 builds of two trees on one card):
           backward kernel at 1,024 rays, M=63 and 191: bit for bit its torch
           transcription, two launches equal, on dyadic weights against
           autograd through the plain sample_pdf; device and wall times, the
-          plain backward's, the bytes bound
+          plain backward's, the bytes bound; and on peaked weights (98% of
+          a ray's weight in 3 adjacent bins, as a trained NeRF's) bit for
+          bit again, with its device and wall times
   train   the reference-default train step (64+128 samples, 8x256, N_rand
           1024, f32) on a seeded scene shaped like a SCADE ScanNet scene:
           18 train + 2 val views at 468x624, K=20 hypotheses
@@ -609,6 +613,34 @@ def k2_inputs(gen: torch.Generator, R: int, M: int, S: int = 128):
     return bins, w, u, dyadic
 
 
+def k2_peaked(gen: torch.Generator, R: int, M: int):
+    """Weights as a trained NeRF's P_depth weights are: 98% of each ray's
+    weight in 3 adjacent bins at a random place, the rest spread at random,
+    as the renderer's [:, 1:-1] view."""
+    n = M - 1
+    at = torch.randint(0, n - 2, (R, 1), generator=gen)
+    idx = torch.arange(n)
+    heavy = (idx >= at) & (idx < at + 3)
+    w = torch.where(heavy, torch.rand(R, n, generator=gen) * 0.5 + 0.5,
+                    torch.rand(R, n, generator=gen))
+    hw, lw = torch.where(heavy, w, 0), torch.where(heavy, 0, w)
+    w = 0.98 * hw / hw.sum(-1, keepdim=True) + 0.02 * lw / lw.sum(-1, keepdim=True)
+    return torch.nn.functional.pad(w, (1, 1)).to("cuda")[:, 1:-1]
+
+
+def busiest_entry(w, u) -> float:
+    """The mean over the rays of the most gradient terms (a draw's below
+    and above, as the backward kernel sorts them) that land on one CDF
+    entry: the longest serial sum of the ray's warp."""
+    cdf = fused_sampling.cdf_kernel_order(w)
+    M = cdf.shape[-1]
+    k = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    ent = torch.cat([torch.clamp(k - 1, min=0), torch.clamp(k, max=M - 1)], -1)
+    counts = torch.zeros(ent.shape[0], M, device=ent.device).scatter_add_(
+        -1, ent, torch.ones_like(ent, dtype=torch.float32))
+    return counts.amax(-1).mean().item()
+
+
 def graph_us(fn, n: int = 50, reps: int = 5) -> float:
     """Device µs per call of ``fn``: ``n`` calls captured in one CUDA graph,
     replayed ``reps`` times between two events, so no host time is in it."""
@@ -761,6 +793,7 @@ def phase_k2(gen: torch.Generator) -> dict:
                          rel_err_vs_autograd_dyadic=max(v["rel_err_vs_autograd_dyadic"]
                                                         for v in bwd.values()),
                          ms=b["device_us"] / 1e3, wall_ms=b["wall_us"] / 1e3,
+                         ms_peaked=b["device_us_peaked"] / 1e3,
                          plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"]))
 
@@ -775,7 +808,10 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     of the largest entry). Times: device µs (CUDA graph) and wall µs of the
     launcher asking for the weights' gradient alone, as the train step does;
     the plain backward (the forward recomputed, then autograd through it:
-    the backward before this kernel); the bytes bound."""
+    the backward before this kernel); the bytes bound. Then on peaked
+    weights (k2_peaked, the same bins, draws and g): bit for bit the
+    transcription again, and the device and wall µs; for both kinds of
+    weights the mean over the rays of the busiest entry's terms."""
     bins, w, u, dyadic = k2_inputs(gen, R, M, S)
     g = torch.randn(R, S, generator=gen).to("cuda")
     got = fused_sampling.sample_pdf_backward_cuda(bins, w, u, g, need_bins=True, need_u=True)
@@ -795,6 +831,13 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
               for a, c in zip(got_d, ref_d))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     del got, order, again, got_d, ref_d, leaves
+    peaked = k2_peaked(gen, R, M)
+    got_p = fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g, need_bins=True,
+                                                    need_u=True)
+    exact_p = all(torch.equal(a, c) for a, c in zip(
+        got_p, fused_sampling.sample_pdf_backward_kernel_order(bins, peaked, u, g)))
+    finite = finite and all(bool(torch.isfinite(a).all()) for a in got_p)
+    del got_p
     wl = w.detach().requires_grad_(True)
     device_us = graph_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
     call_us = wall_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
@@ -803,10 +846,18 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     # per weight: the CDF build's 5 and the reverse scan's 5; per draw:
     # ceil(log2(M + 1)) compares, then 14 operations and 4 adds into the bins
     ops = R * (M - 1) * 10 + R * S * (math.ceil(math.log2(M + 1)) + 18)
-    return dict(ok=exact and twice and copies and rel <= 1.0 and finite, max_abs_err=err,
-                bit_equal_kernel_order=exact, two_launches_equal=twice,
+    return dict(ok=exact and twice and copies and rel <= 1.0 and finite and exact_p,
+                max_abs_err=err, bit_equal_kernel_order=exact, two_launches_equal=twice,
                 strided_equals_copy=copies, rel_err_vs_autograd_dyadic=rel,
-                device_us=device_us, wall_us=call_us, plain_ms=plain_ms,
+                bit_equal_kernel_order_peaked=exact_p,
+                device_us=device_us,
+                device_us_peaked=graph_us(
+                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
+                wall_us=call_us,
+                wall_us_peaked=wall_us(
+                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
+                busiest_entry_terms=busiest_entry(w, u),
+                busiest_entry_terms_peaked=busiest_entry(peaked, u), plain_ms=plain_ms,
                 device_ops_per_call=device_ops(
                     lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g)),
                 bound_ms=max(nbytes / HBM_BYTES, ops / PEAK_F32) * 1e3,
@@ -2928,6 +2979,9 @@ def main() -> int:
     parser.add_argument("--k1-only", action="store_true",
                         help="run the device and k1 phases only and print no result line: "
                              "for comparing K1 builds of two trees on one card")
+    parser.add_argument("--k2-only", action="store_true",
+                        help="run the device and k2 phases only and print no result line: "
+                             "for comparing K2 builds of two trees on one card")
     parser.add_argument("--prior-only", action="store_true",
                         help="run the device phase, then the prior_train, prior and "
                              "prior_pretrain phases, and print no result line: for the prior's "
@@ -2990,6 +3044,9 @@ def main() -> int:
     if args.quality_only:
         phase_quality()
         return 0
+    if args.k2_only:
+        phase_k2(gen)
+        return 0
     k1 = phase_k1(gen, dev["sass"])
     if args.k1_only:
         return 0
@@ -3045,6 +3102,7 @@ def main() -> int:
              bound_by=k2["bwd"]["bound_by"], library_ms=None, check="pass",
              launches_train_phase=train_launches["k2_bwd"],
              launches_tp_phase=tp_launches["k2_bwd"], wall_ms=k2["bwd"]["wall_ms"],
+             ms_peaked=k2["bwd"]["ms_peaked"],
              rel_err_vs_autograd_dyadic=k2["bwd"]["rel_err_vs_autograd_dyadic"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

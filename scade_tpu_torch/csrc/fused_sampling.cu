@@ -56,24 +56,47 @@
 //
 // Bound: bytes. A ray reads M bins, M-1 weights, S draws and S upstream
 // gradients and writes M-1 weight gradients (and M bin and S draw
-// gradients where they are asked for): (2M - 1 + 2S + M - 1) * 4 bytes.
+// gradients where they are asked for): (2M - 1 + 2S + M - 1) * 4 bytes,
+// 1.01 us at R = 1,024, M = 191, S = 128 (3.35 TB/s).
 //
-// Design of the backward: one warp per ray again, and the same CDF build,
-// so that below/above are the forward's. Several draws of a ray land on one
-// bin (the P_depth draws are iid, not sorted), and the sums must come out
-// the same on every run: there is no floating-point atomic. A lane owns the
-// CDF entries and bins 1 + [l L, (l + 1) L) (lane 0 also bins[0]) and keeps
-// their sums in shared memory. The warp takes 32 draws at a time, a draw a
-// lane; then for each of the 32 in index order the draw's indices and
-// terms are broadcast by shuffles and the owning lane adds them (a draw's
-// below before its above). The reverse scan to grad_pdf and the sum of
-// grad_pdf pdf reuse the lane segments: segment sums from the top down, a
-// Kogge-Stone suffix scan over the lanes, serial sums from each lane's
-// offset; a butterfly for the dot product. Every operation is an explicit
-// round-to-nearest intrinsic, so the order is fixed and
-// ops/fused_sampling.py::sample_pdf_backward_kernel_order repeats it with
-// torch ops bit for bit. The gradients are written coalesced from shared
-// memory.
+// The order of the sums is fixed: each CDF entry's and each bin's sum runs
+// over the draws in index order, a draw's below term before its above term
+// (also where both are entry M-1), from +0, exact zeros included; cdf[0]
+// takes none. ops/fused_sampling.py::sample_pdf_backward_kernel_order
+// repeats it with torch ops bit for bit. There is no floating-point atomic:
+// the P_depth draws are iid, so several draws of a ray land on one entry.
+//
+// The first design walked the draws 32 at a time and, for each of the 32 in
+// index order, broadcast its indices and terms by 6 shuffles to the lane
+// owning the entry: a chain of S dependent steps a ray (18-20 us at the
+// train step's shape, flat in M), with 1,024 warps on 132 SMs and nothing
+// to hide its latency. This design sorts instead, and the chain is the
+// busiest entry's list:
+//  - One warp per ray, WARPS rays a block, and the forward's CDF build, so
+//    that below/above are the forward's. Each lane computes the terms of
+//    every 32nd draw of a tile of TILE draws (4 a lane at TILE = 128; the
+//    draws' loads are issued before the CDF build).
+//  - A stable counting sort of the tile's 2 TILE terms by entry, on
+//    integers only: term 2j is draw j's below, 2j + 1 its above, and a
+//    round gives lane l term 32 i + l (two shuffles from the draw's lane).
+//    __match_any_sync on the entry gives a term's rank among the round's
+//    terms on that entry; a per-entry count in shared memory, bumped by the
+//    last lane of each match group, carries it over the rounds; an
+//    exclusive scan of the counts (lane segments and a Kogge-Stone scan, as
+//    the CDF build) gives each entry's list start. Each term goes to its
+//    slot: every entry's list is its terms in the order above.
+//  - Lane l owns the entries l, l + 32, ...: a trained ray's weight sits in
+//    a few adjacent bins, and adjacent entries land on different lanes. The
+//    owner adds its lists serially onto the entry's running sum, which
+//    carries over the tiles in shared memory, so no buffer grows with S.
+//  - Without grad_bins (the train step's call) no bin term is computed,
+//    moved or added.
+// The reverse scan to grad_pdf and the sum of grad_pdf pdf use the lane
+// segments of the CDF build: segment sums from the top down, a Kogge-Stone
+// suffix scan over the lanes, serial sums from each lane's offset; a
+// butterfly for the dot product. Every floating-point operation is an
+// explicit round-to-nearest intrinsic. The gradients are written coalesced
+// from shared memory.
 
 #include <cuda_runtime.h>
 
@@ -168,7 +191,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr int BWD_ROWS = 5;  // rows of M floats a warp keeps in shared memory
+constexpr int TILE = 128;       // draws a warp sorts at a time
+constexpr int GROUPS = TILE / 32;  // draws a lane computes a tile
+constexpr int ROUNDS = TILE / 16;  // terms a lane holds a tile: 2 a draw
+
+// Shared memory of one warp of the backward, in 4-byte words: cdf, bins,
+// pdf and the sums of the CDF entries and bins (M each), the counts and
+// list starts (M + 1), and the sorted terms of the CDF entries and the bins
+// (2 TILE each). ops/fused_sampling.py checks the same size.
+__host__ __device__ constexpr size_t backward_words(int M) {
+  return 6 * (size_t)M + 1 + 4 * TILE;
+}
 
 __global__ void __launch_bounds__(THREADS)
     sample_pdf_backward_kernel(const float* __restrict__ bins, long long bins_stride,
@@ -182,65 +215,154 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + warp;
   if (r >= R) return;  // a whole warp; the kernel has no block-wide barrier
-  float* cs = sm + (size_t)warp * BWD_ROWS * M;  // cdf row
-  float* bs = cs + M;                            // bins row
-  float* pdf = bs + M;                           // pdf (M - 1 of the M)
-  float* gc = pdf + M;                           // grad of the cdf, then of w
-  float* gb = gc + M;                            // grad of the bins
+  float* cs = sm + warp * backward_words(M);  // cdf row
+  float* bs = cs + M;                          // bins row
+  float* pdf = bs + M;                         // pdf (M - 1 of the M)
+  float* gc = pdf + M;                         // sums of the cdf entries, then grad of w
+  float* gb = gc + M;                          // sums of the bins
+  int* start = reinterpret_cast<int*>(gb + M);               // counts, then list starts
+  float* tc = reinterpret_cast<float*>(start + M + 1);       // sorted cdf terms
+  float* tb = tc + 2 * TILE;                                 // sorted bin terms
+  const bool want_bins = grad_bins != nullptr;
+  const unsigned lower = (1u << lane) - 1u;  // the lanes below this one
+  const float* ur = u + r * u_stride;
+  const float* gr = g + r * g_stride;
+  float uu[GROUPS], gg[GROUPS];
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int i = 0; i < GROUPS; ++i) {
+      const int j = t0 + 32 * i + lane;
+      uu[i] = j < S ? ur[j] : 0.f;
+      gg[i] = j < S ? gr[j] : 0.f;
+    }
+  };
+  load(0);
   for (int i = lane; i < M; i += 32) {
     gc[i] = 0.f;
-    gb[i] = 0.f;
+    if (want_bins) gb[i] = 0.f;
   }
   const float s = build_cdf(weights + r * weights_stride, bins + r * bins_stride, cs, bs, pdf,
                             M, lane);
 
+  for (int t0 = 0; t0 < S; t0 += TILE) {
+    for (int i = lane; i <= M; i += 32) start[i] = 0;
+    // the terms of draws t0 + 32 i + lane; entry -1 past S
+    int below[GROUPS], above[GROUPS];
+    float g_cb[GROUPS], g_ca[GROUPS], g_bb[GROUPS], g_ba[GROUPS];
+#pragma unroll
+    for (int i = 0; i < GROUPS; ++i) {
+      const int j = t0 + 32 * i + lane;
+      below[i] = above[i] = -1;
+      g_cb[i] = g_ca[i] = g_bb[i] = g_ba[i] = 0.f;
+      if (j < S) {
+        const int k = count_le(cs, M, uu[i]);
+        below[i] = max(k - 1, 0);
+        above[i] = min(k, M - 1);
+        const float cb = cs[below[i]];
+        float denom = __fsub_rn(cs[above[i]], cb);
+        const bool guard = denom < 1e-5f;
+        if (guard) denom = 1.f;
+        const float t = __fdiv_rn(__fsub_rn(uu[i], cb), denom);
+        const float gu =
+            __fdiv_rn(__fmul_rn(gg[i], __fsub_rn(bs[above[i]], bs[below[i]])), denom);
+        const float q = __fmul_rn(gu, t);
+        g_cb[i] = guard ? -gu : __fsub_rn(q, gu);
+        g_ca[i] = guard ? 0.f : -q;
+        if (want_bins) {
+          g_ba[i] = __fmul_rn(gg[i], t);
+          g_bb[i] = __fsub_rn(gg[i], g_ba[i]);
+        }
+        if (grad_u) grad_u[(size_t)r * S + j] = gu;
+      }
+    }
+    if (t0 + TILE < S) load(t0 + TILE);
+    // round i holds terms 32 i + lane: draw 16 i + lane / 2 of the tile, its
+    // above where lane is odd
+    int ent[ROUNDS];
+    unsigned same[ROUNDS];
+    float vc[ROUNDS], vb[ROUNDS];
+    const int src = lane >> 1;
+    const bool odd = lane & 1;
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      const int d = i >> 1, from = 16 * (i & 1) + src;
+      const int kb = __shfl_sync(FULL, below[d], from);
+      const int ka = __shfl_sync(FULL, above[d], from);
+      const float cb = __shfl_sync(FULL, g_cb[d], from);
+      const float ca = __shfl_sync(FULL, g_ca[d], from);
+      ent[i] = odd ? ka : kb;
+      vc[i] = odd ? ca : cb;
+      if (want_bins) {
+        const float bb = __shfl_sync(FULL, g_bb[d], from);
+        const float ba = __shfl_sync(FULL, g_ba[d], from);
+        vb[i] = odd ? ba : bb;
+      }
+      same[i] = __match_any_sync(FULL, ent[i]);  // the lanes with this lane's entry
+    }
+    __syncwarp();  // start[] zeroed
+    // ranks: the earlier terms on the same entry, this round's and the
+    // earlier rounds' (the count); the last lane of a match group bumps it
+    int rank[ROUNDS];
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      const int e = ent[i];
+      const int base = e >= 0 ? start[e] : 0;
+      rank[i] = base + __popc(same[i] & lower);
+      __syncwarp();
+      if (e >= 0 && (same[i] >> lane) == 1u) start[e] = base + __popc(same[i]);
+      __syncwarp();
+    }
+    {  // exclusive scan of the counts start[0, M] (start[M] is 0) → list starts
+      const int n1 = M + 1;
+      const int len = (n1 + 31) / 32;
+      const int lo = min(lane * len, n1);
+      const int hi = min(lo + len, n1);
+      int c = 0;
+      for (int i = lo; i < hi; ++i) c += start[i];
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, c, off);
+        if (lane >= off) c += y;
+      }
+      int o = __shfl_up_sync(FULL, c, 1);
+      if (lane == 0) o = 0;
+      for (int i = lo; i < hi; ++i) {
+        const int k = start[i];
+        start[i] = o;
+        o += k;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      if (ent[i] < 0) continue;
+      const int slot = start[ent[i]] + rank[i];
+      tc[slot] = vc[i];
+      if (want_bins) tb[slot] = vb[i];
+    }
+    __syncwarp();
+    // the owners' serial sums, entry by entry, onto the running sums
+    for (int e = lane; e < M; e += 32) {
+      const int a = start[e], b = start[e + 1];
+      if (a == b) continue;
+      if (e > 0) {
+        float acc = gc[e];
+        for (int i = a; i < b; ++i) acc = __fadd_rn(acc, tc[i]);
+        gc[e] = acc;
+      }
+      if (want_bins) {
+        float acc = gb[e];
+        for (int i = a; i < b; ++i) acc = __fadd_rn(acc, tb[i]);
+        gb[e] = acc;
+      }
+    }
+    __syncwarp();  // start[] and the terms are read before the next tile
+  }
+
+  // grad_pdf[i] = sum of gc[k] for k > i, on the lane segments
   const int n = M - 1;
   const int len = (n + 31) / 32;
   const int lo = min(lane * len, n);
   const int hi = min(lo + len, n);
-  // this lane's entries of gc and gb: (lo, hi], and gb[0] in lane 0
-  const int own_lo = lane == 0 ? -1 : lo;
-  const float* ur = u + r * u_stride;
-  const float* gr = g + r * g_stride;
-  for (int j0 = 0; j0 < S; j0 += 32) {
-    const int j = j0 + lane;
-    int below = -1, above = -1;
-    float g_cb = 0.f, g_ca = 0.f, g_bb = 0.f, g_ba = 0.f;
-    if (j < S) {
-      const float uu = ur[j];
-      const float gj = gr[j];
-      const int k = count_le(cs, M, uu);
-      below = max(k - 1, 0);
-      above = min(k, M - 1);
-      const float cb = cs[below];
-      float denom = __fsub_rn(cs[above], cb);
-      const bool guard = denom < 1e-5f;
-      if (guard) denom = 1.f;
-      const float t = __fdiv_rn(__fsub_rn(uu, cb), denom);
-      const float gu = __fdiv_rn(__fmul_rn(gj, __fsub_rn(bs[above], bs[below])), denom);
-      const float q = __fmul_rn(gu, t);
-      g_cb = guard ? -gu : __fsub_rn(q, gu);
-      g_ca = guard ? 0.f : -q;
-      g_ba = __fmul_rn(gj, t);
-      g_bb = __fsub_rn(gj, g_ba);
-      if (grad_u) grad_u[(size_t)r * S + j] = gu;
-    }
-    const int m = min(32, S - j0);
-    for (int k = 0; k < m; ++k) {  // the draws j0 + k in index order
-      const int kb = __shfl_sync(FULL, below, k);
-      const int ka = __shfl_sync(FULL, above, k);
-      const float vcb = __shfl_sync(FULL, g_cb, k);
-      const float vca = __shfl_sync(FULL, g_ca, k);
-      const float vbb = __shfl_sync(FULL, g_bb, k);
-      const float vba = __shfl_sync(FULL, g_ba, k);
-      if (kb > lo && kb <= hi) gc[kb] = __fadd_rn(gc[kb], vcb);
-      if (ka > lo && ka <= hi) gc[ka] = __fadd_rn(gc[ka], vca);
-      if (kb > own_lo && kb <= hi) gb[kb] = __fadd_rn(gb[kb], vbb);
-      if (ka > own_lo && ka <= hi) gb[ka] = __fadd_rn(gb[ka], vba);
-    }
-  }
-
-  // grad_pdf[i] = sum of gc[k] for k > i, on the lane segments
   float tot = 0.f;
   for (int i = hi - 1; i >= lo; --i) tot = __fadd_rn(tot, gc[i + 1]);
   for (int off = 1; off < 32; off <<= 1) {
@@ -259,7 +381,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = lo; i < hi; ++i) gc[i + 1] = __fdiv_rn(__fsub_rn(gc[i + 1], d), s);
   __syncwarp();
   for (int i = lane; i < n; i += 32) grad_w[(size_t)r * n + i] = gc[i + 1];
-  if (grad_bins)
+  if (want_bins)
     for (int i = lane; i < M; i += 32) grad_bins[(size_t)r * M + i] = gb[i];
 }
 
@@ -289,9 +411,9 @@ extern "C" int sample_pdf_fused(const float* bins, long long bins_stride, const 
 // bins (R, M), weights (R, M-1), u and g (R, S): f32, inner stride 1, row
 // strides in elements (any, 0 included). grad_w (R, M-1), grad_bins (R, M)
 // and grad_u (R, S): f32 contiguous; grad_bins and grad_u may be null (not
-// asked for). Returns a cudaError_t; 0 is success. Above M = 614 the rows
-// need more than 48 KB of shared memory a block, and the kernel is opted in
-// to it on each call.
+// asked for). Returns a cudaError_t; 0 is success. Above M = 426 a block
+// needs more than 48 KB of shared memory, and the kernel is opted in to it
+// on each call.
 extern "C" int sample_pdf_backward(const float* bins, long long bins_stride,
                                    const float* weights, long long weights_stride,
                                    const float* u, long long u_stride, const float* g,
@@ -299,7 +421,7 @@ extern "C" int sample_pdf_backward(const float* bins, long long bins_stride,
                                    float* grad_u, int R, int M, int S, void* stream) {
   if (R <= 0) return 0;
   if (M < 2 || S < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * BWD_ROWS * M * sizeof(float);
+  const size_t smem = WARPS * backward_words(M) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         sample_pdf_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -6,8 +6,9 @@ counterpart of its ``_bwd`` (:172), a VJP of the plain ``sample_pdf`` that
 XLA runs in a fixed order. The CUDA source is ``csrc/fused_sampling.cu``;
 its header says what bounds each kernel on the card (bytes) and how one warp
 per ray builds the CDF in shared memory, inverts it, and for the backward
-adds each draw's gradient into the bins and CDF entries in a fixed order,
-reading strided weights and broadcast draws in place.
+sorts each draw's gradient terms by entry (a stable counting sort on
+integers) so that each entry's owner adds them in a fixed order, reading
+strided weights and broadcast draws in place.
 
 ``fused_sample_pdf`` is the entry point. For CUDA tensors it launches the
 kernels (``sample_pdf_cuda`` forward, ``sample_pdf_backward_cuda`` backward)
@@ -33,6 +34,7 @@ from scade_tpu_torch.ops import sampling
 
 LANES = 32  # a warp: the kernel's lanes per ray
 WARPS = 4  # rays per block, as csrc/fused_sampling.cu
+TILE = 128  # draws the backward kernel sorts at a time, as csrc/fused_sampling.cu
 SMEM_LIMIT = 227 * 1024  # shared memory a block can use on Hopper
 
 
@@ -54,11 +56,12 @@ def _backward_entry():
     return fn
 
 
-def _check_inputs(what, tensors, rows_per_warp):
+def _check_inputs(what, tensors, rows_per_warp, words_per_warp=0):
     """The launchers' argument checks: ``tensors`` are bins (R, M), weights
     (R, M-1), then tensors of shape (R, S); ``rows_per_warp`` rows of M
-    floats a warp in shared memory. Every check but the device's comes
-    first, so that each shows on CPU tensors. Returns R, M, S."""
+    4-byte words and ``words_per_warp`` more a warp in shared memory. Every
+    check but the device's comes first, so that each shows on CPU tensors.
+    Returns R, M, S."""
     names = ("bins", "weights", "u", "g")[:len(tensors)]
     if any(t.dim() != 2 for t in tensors):
         raise ValueError(f"{what}: {', '.join(names)} must be 2-D, got "
@@ -81,7 +84,7 @@ def _check_inputs(what, tensors, rows_per_warp):
     if not (bins.is_cuda and all(t.device == bins.device for t in tensors)):
         raise ValueError(f"{what}: needs CUDA tensors on one device, got "
                          f"{', '.join(str(t.device) for t in tensors)}")
-    if WARPS * rows_per_warp * M * 4 > SMEM_LIMIT:
+    if WARPS * (rows_per_warp * M + words_per_warp) * 4 > SMEM_LIMIT:
         raise ValueError(f"{what}: M={M} bins exceed shared memory")
     return R, M, S
 
@@ -115,7 +118,9 @@ def sample_pdf_backward_cuda(bins, weights, u, g, need_bins=False, need_u=False)
     (grad_bins, grad_weights, grad_u), contiguous, grad_bins and grad_u None
     unless asked for. ``sample_pdf_backward_cuda.launches`` counts the
     launches."""
-    R, M, S = _check_inputs("sample_pdf_backward_cuda", (bins, weights, u, g), 5)
+    # cdf, bins, pdf, two rows of sums, the list starts (M + 1), the sorted terms
+    R, M, S = _check_inputs("sample_pdf_backward_cuda", (bins, weights, u, g), 6,
+                            1 + 4 * TILE)
 
     def empty(n):
         return torch.empty((R, n), dtype=torch.float32, device=bins.device)
@@ -201,8 +206,9 @@ def sample_pdf_backward_kernel_order(bins, weights, u, g):
       cdf[below] += gu t - gu,  cdf[above] += -gu t   (or cdf[below] += -gu
                                                        where the guard fired)
     Each bin's and CDF entry's sum runs over the draws in index order, a
-    draw's below before its above (the kernel: the lane that owns the entry
-    walks the draws); cdf[0] takes none. Then, on the lanes' segments of
+    draw's below before its above (the kernel sorts the terms by entry,
+    stably, and the lane that owns an entry adds its list); cdf[0] takes
+    none. Then, on the lanes' segments of
     the CDF entries 1..M-1, the reverse scan to grad_pdf (segment sums from
     the top down, a Kogge-Stone suffix scan of those, serial sums from each
     lane's offset), d = sum grad_pdf pdf (each lane's terms from the top

@@ -30,9 +30,11 @@ zero-stride inputs exactly as their contiguous copies. K2's backward kernel
 bit for bit against sample_pdf_backward_kernel_order, the same on every
 launch (it adds in a fixed order, with no atomics), and against autograd
 through the plain sample_pdf at rtol 1e-4 with an atol of 1e-6 of the
-largest entry on dyadic weights; on random weights with an atol of 1e-4 of
-the largest entry, on the draws that f32 can decide (``decidable``; the
-plain backward's own atomics add in no fixed order there). A resumed CLI run
+largest entry on dyadic weights; on random weights, and on peaked ones
+(some 84 draws an entry, whose sums in two orders differ by up to 1.8e-6 of
+the largest entry), with an atol of 1e-4 of the largest entry, on the draws
+that f32 can decide (``decidable``; the plain backward's own atomics add in
+no fixed order there). A resumed CLI run
 on the card equals a straight one leaf by leaf. The renderer as in
 chip_smoke.py.
 """
@@ -80,21 +82,53 @@ def guard_row(M, exact):
     return w
 
 
-def backward_case(M, R, S, exact, seed=0):
+def peaked(rng, R, M, exact):
+    """Weights as a trained NeRF's P_depth weights are: 98% of a row's
+    weight in 3 adjacent bins at a random place (fewer where M - 1 < 3), so
+    that most draws share a few CDF entries. Exact: dyadic, the light bins
+    1-3 / 2^12 each and the row's sum a power of two."""
+    n = M - 1
+    h = min(3, n)
+    at = rng.integers(0, n - h + 1, R)
+    heavy = np.zeros((R, n), bool)
+    for r in range(R):
+        heavy[r, at[r]:at[r] + h] = True
+    if not exact:
+        w = np.where(heavy, rng.uniform(0.5, 1, (R, n)), rng.uniform(0, 1, (R, n)))
+        light = np.where(heavy, 0, w)
+        w = np.where(heavy, 0.98 * w / np.where(heavy, w, 0).sum(-1, keepdims=True),
+                     0.02 * light / np.maximum(light.sum(-1, keepdims=True), 1e-30))
+        return w.astype(np.float32)
+    k = np.where(heavy, 0, rng.integers(1, 4, (R, n)))
+    total = 1 << int(np.ceil(np.log2(50 * k.sum(-1).max() + 4)))
+    for r in range(R):
+        rest = total - k[r].sum()
+        parts = rng.integers(rest // 4, rest // h + 1, h)
+        parts[-1] = rest - parts[:-1].sum()
+        k[r, at[r]:at[r] + h] = parts
+    v = (k * 2.0**-12).astype(np.float32)
+    w = (v - np.float32(1e-5)).astype(np.float32)
+    assert ((w + np.float32(1e-5)) == v).all()
+    return w
+
+
+def backward_case(M, R, S, exact, seed=0, peak=False):
     """Seeded numpy inputs of K2's backward: strictly ascending bins, random
-    or dyadic (``exact``) weights, draws with 0, 1e-8, 1 - 1e-7, 0.5 and 1
-    first, row 1 (M > 2) a guard_row with 5 draws in its narrow gaps, and an
-    upstream gradient g ~ N(0, 1)."""
+    or dyadic (``exact``) weights, ``peaked`` where ``peak``, draws with 0,
+    1e-8, 1 - 1e-7, 0.5 and 1 first, row 1 (M > 2) a guard_row with 5 draws
+    in its narrow gaps, and an upstream gradient g ~ N(0, 1)."""
     rng = np.random.default_rng(seed + M + 1000 * exact)
     bins = (0.5 + np.cumsum(rng.uniform(0.005, 0.06, (R, M)), -1)).astype(np.float32)
     w = dyadic(rng, R, M) if exact else rng.uniform(0, 1, (R, M - 1)).astype(np.float32)
     u = rng.uniform(0, 1, (R, S)).astype(np.float32)
     edge = [0.0, 1e-8, 1.0 - 1e-7, 0.5, 1.0][:S]
     u[:, :len(edge)] = edge
+    g = rng.standard_normal((R, S)).astype(np.float32)
+    if peak:
+        w = peaked(rng, R, M, exact)
     if M > 2 and R > 1 and S >= 10:
         w[1] = guard_row(M, exact)
         u[1, 5:10] = (np.arange(1, 6) + 0.5) / 2**17
-    g = rng.standard_normal((R, S)).astype(np.float32)
     return bins, w, u, g
 
 
@@ -248,16 +282,19 @@ def test_k2_matches_plain(cuda, R, S, M):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [63, 191, 2])
-@pytest.mark.parametrize("R,S", [(1000, 128), (37, 128), (5, 3)])
+@pytest.mark.parametrize("R,S", [(1000, 128), (37, 128), (5, 3), (37, 200)])
 def test_k2_backward_kernel(cuda, R, S, M):
     """The backward kernel through its launcher: every gradient bit for bit
     its torch transcription (sample_pdf_backward_kernel_order) run on the
     card, two launches equal, the weights' [:, 1:-1] view and a zero-stride
     draw row read in place, and against autograd through the plain
     sample_pdf (grads_close), on dyadic weights with every draw and on
-    random ones where f32 can decide."""
-    for exact in (True, False):
-        b, w, u, g = backward_case(M, R, S, exact)
+    random ones where f32 can decide; each also peaked (98% of the weight in
+    3 adjacent bins, held by the random weights' atol, see
+    tests/test_torch_sample_pdf_backward.py). S = 200 is two of the kernel's
+    tiles of draws, the second partial."""
+    for exact, peak in ((True, False), (False, False), (True, True), (False, True)):
+        b, w, u, g = backward_case(M, R, S, exact, peak=peak)
         bins, u, g = (torch.from_numpy(a).to(cuda) for a in (b, u, g))
         full = torch.from_numpy(np.pad(w, ((0, 0), (1, 1)), constant_values=3.0)).to(cuda)
         wv = full[:, 1:-1]
@@ -281,7 +318,7 @@ def test_k2_backward_kernel(cuda, R, S, M):
         leaves = [t.clone().requires_grad_(True) for t in (bins, wv, u)]
         ref = torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, gm)
         grads_close(fused_sampling.sample_pdf_backward_cuda(bins, wv, u, gm, True, True), ref,
-                    exact)
+                    exact and not peak)
 
 
 @pytest.mark.cuda
