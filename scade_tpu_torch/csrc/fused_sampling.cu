@@ -69,9 +69,11 @@
 // The first design walked the draws 32 at a time and, for each of the 32 in
 // index order, broadcast its indices and terms by 6 shuffles to the lane
 // owning the entry: a chain of S dependent steps a ray (18-20 us at the
-// train step's shape, flat in M), with 1,024 warps on 132 SMs and nothing
-// to hide its latency. This design sorts instead, and the chain is the
-// busiest entry's list:
+// train step's shape on an H100, flat in M), with 1,024 warps on 132 SMs
+// and nothing to hide its latency. This design sorts instead, and the chain
+// is the busiest entry's list (12.2 us on uniform weights, 10.7 on peaked
+// ones, on the same card; the rest is latency of the CDF build, the sort's
+// steps and the reverse scan, which ops/fused_sampling.py's order fixes):
 //  - One warp per ray, WARPS rays a block, and the forward's CDF build, so
 //    that below/above are the forward's. Each lane computes the terms of
 //    every 32nd draw of a tile of TILE draws (4 a lane at TILE = 128; the
@@ -91,6 +93,11 @@
 //    carries over the tiles in shared memory, so no buffer grows with S.
 //  - Without grad_bins (the train step's call) no bin term is computed,
 //    moved or added.
+// Tried on the same card and left out: the match groups from one ballot per
+// bit of the entry (faster on uniform weights, slower on peaked ones, where
+// __match_any_sync has few groups to find); owners summing 4 entries at once
+// (slower, 2x on peaked weights); ranks from each draw's key (count_le) in 4
+// rounds in place of the terms' 8 (slower: more registers).
 // The reverse scan to grad_pdf and the sum of grad_pdf pdf use the lane
 // segments of the CDF build: segment sums from the top down, a Kogge-Stone
 // suffix scan over the lanes, serial sums from each lane's offset; a

@@ -208,11 +208,11 @@ def sample_pdf_backward_kernel_order(bins, weights, u, g):
     Each bin's and CDF entry's sum runs over the draws in index order, a
     draw's below before its above (the kernel sorts the terms by entry,
     stably, and the lane that owns an entry adds its list); cdf[0] takes
-    none. Then, on the lanes' segments of
-    the CDF entries 1..M-1, the reverse scan to grad_pdf (segment sums from
-    the top down, a Kogge-Stone suffix scan of those, serial sums from each
-    lane's offset), d = sum grad_pdf pdf (each lane's terms from the top
-    down, then a butterfly), and grad_w = (grad_pdf - d) / sum(w')."""
+    none. Then, on the lanes' segments of the CDF entries 1..M-1, the
+    reverse scan to grad_pdf (segment sums from the top down, a Kogge-Stone
+    suffix scan of those, serial sums from each lane's offset), d = sum
+    grad_pdf pdf (each lane's terms from the top down, then a butterfly),
+    and grad_w = (grad_pdf - d) / sum(w')."""
     R, M = bins.shape
     n = M - 1
     cdf, pdf, s = _cdf_kernel_order_parts(weights)

@@ -31,7 +31,7 @@ bit for bit against sample_pdf_backward_kernel_order, the same on every
 launch (it adds in a fixed order, with no atomics), and against autograd
 through the plain sample_pdf at rtol 1e-4 with an atol of 1e-6 of the
 largest entry on dyadic weights; on random weights, and on peaked ones
-(some 84 draws an entry, whose sums in two orders differ by up to 1.8e-6 of
+(~87 terms an entry, whose sums in two orders differ by up to 1.8e-6 of
 the largest entry), with an atol of 1e-4 of the largest entry, on the draws
 that f32 can decide (``decidable``; the plain backward's own atomics add in
 no fixed order there). A resumed CLI run

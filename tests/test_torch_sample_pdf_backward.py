@@ -17,10 +17,10 @@ argument checks.
   (measured: at most 1.5e-5). Draws include exactly 0 and 1, and row 1 is a
   row where the guard fires (``guard_row``). Peaked rows (98% of the weight
   in 3 adjacent bins) take the random weights' atol on dyadic weights too:
-  there some 84 draws add into one entry, the few in the light bins with
-  terms in the hundreds, and grad_w is a difference of such sums, so the
-  two orders differ by up to 1.8e-6 of the largest entry (measured, M=191),
-  above the exact bound's 1e-6.
+  there ~87 of a row's 256 terms add into one entry, those of the few draws
+  in the light bins in the hundreds, and grad_w is a difference of such
+  sums, so the two orders differ by up to 1.8e-6 of the largest entry
+  (measured, M=191), above the exact bound's 1e-6.
 - ``sample_pdf_backward_kernel_order`` bit for bit against a transcription of
   the kernel's loops in numpy float32 scalars, every lane and shuffle; and
   against the plain backward by the same bounds as above. Peaked rows

@@ -10,9 +10,10 @@ uniform random weights and on peaked ones (chip_smoke.k2_peaked), asking for
 the weights' gradient alone as the train step does. Prints one line per
 variant and shape (device µs, CUDA-graph replay, the least of 5; whether the
 weights' gradient is bit for bit sample_pdf_backward_kernel_order's) and a
-JSON line of them all. Two variants are designs (``ballot``: the match
+JSON line of them all. Three variants are designs (``ballot``: the match
 groups from one ballot per bit of the entry; ``owners4``: each lane sums 4
-of its entries at once); the ``no_*`` variants cut a part out to show its
+of its entries at once; ``owners_walk``: lane l sums the lists that start in
+its 1/32 of the tile's slots); the ``no_*`` variants cut a part out to show its
 cost and compute wrong gradients.
 """
 
@@ -37,6 +38,9 @@ SORT_TO = "    __syncwarp();  // start[] and the terms are read before the next 
 TAIL_FROM = "  float tot = 0.f;\n"
 TAIL_TO = "  for (int i = lo; i < hi; ++i) gc[i + 1] = __fdiv_rn(__fsub_rn(gc[i + 1], d), s);\n"
 OWNERS_FROM = "    for (int e = lane; e < M; e += 32) {\n      const int a = start[e], b = start[e + 1];\n"
+WORDS = "  return 6 * (size_t)M + 1 + 4 * TILE;\n"
+TB = "  float* tb = tc + 2 * TILE;                                 // sorted bin terms\n"
+SCATTER = "      if (want_bins) tb[slot] = vb[i];\n"
 
 BALLOT = """      same[i] = FULL;
     }
@@ -85,6 +89,25 @@ OWNERS4 = """    for (int e0 = lane; e0 < M; e0 += 4 * 32) {
     }
     if (false)
 """
+WALK = """    {  // lane l sums the lists that start in its 1/32 of the slots
+      const int total = start[M];
+      const int per = (total + 31) >> 5;
+      int i = min(lane * per, total);
+      const int stop = min(i + per, total);
+      if (i > 0 && i < stop && start[te[i]] < i) i = start[te[i] + 1];
+      while (i < stop) {
+        const int e = te[i], end = start[e + 1];
+        float ac = gc[e], ab = want_bins ? gb[e] : 0.f;
+        for (; i < end; ++i) {
+          ac = __fadd_rn(ac, tc[i]);
+          if (want_bins) ab = __fadd_rn(ab, tb[i]);
+        }
+        if (e > 0) gc[e] = ac;
+        if (want_bins) gb[e] = ab;
+      }
+    }
+    if (false)
+"""
 
 
 def cut(src, start, end, keep):
@@ -96,12 +119,18 @@ def cut(src, start, end, keep):
 
 
 def variants(src):
-    for marker in (MATCH, SORT_FROM, SORT_TO, TAIL_FROM, TAIL_TO, OWNERS_FROM):
+    for marker in (MATCH, SORT_FROM, SORT_TO, TAIL_FROM, TAIL_TO, OWNERS_FROM, WORDS, TB,
+                   SCATTER):
         assert src.count(marker) == 1, marker
     return {
         "kernel": src,
         "ballot": src.replace(MATCH, BALLOT),
         "owners4": src.replace(OWNERS_FROM, OWNERS4 + OWNERS_FROM),
+        # the slots' entries beside the terms (2 TILE more words a warp)
+        "owners_walk": src.replace(OWNERS_FROM, WALK + OWNERS_FROM).replace(
+            WORDS, WORDS.replace("4 * TILE", "6 * TILE")).replace(
+            TB, TB + "  int* te = reinterpret_cast<int*>(tb + 2 * TILE);\n").replace(
+            SCATTER, SCATTER + "      te[slot] = ent[i];\n"),
         "no_match": src.replace(MATCH, "      same[i] = 1u << lane;\n    }\n"),
         # the terms still reach shared memory, so that the draws' work stays
         "no_sort": cut(src, SORT_FROM, SORT_TO, "    for (int i = 0; i < ROUNDS; ++i)\n"
