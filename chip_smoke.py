@@ -23,16 +23,19 @@ builds of two trees on one card):
           the weight bytes each launch reads from L2
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
-          exactly 0 and 1: exact against the plain lookup of the CDF summed
-          in its order and on dyadic weights, and against the plain
-          sample_pdf within that version's own distance from f64 sums; its
-          device and wall times; one forward call must run one kernel. Its
-          backward kernel at 1,024 rays, M=63 and 191: bit for bit its torch
-          transcription, two launches equal, on dyadic weights against
-          autograd through the plain sample_pdf; device and wall times, the
-          plain backward's, the bytes bound; and on peaked weights (98% of
-          a ray's weight in 3 adjacent bins, as a trained NeRF's) bit for
-          bit again, with its device and wall times
+          exactly 0 and 1: against the plain sample_pdf (the same CDF law,
+          the JAX package's order of sums) on random and dyadic weights, and
+          bit for bit on opaque rows (a ray's weight, 1.0 or 0.999, in 5
+          adjacent bins, where an ulp of the CDF decides the 1e-5 guard),
+          with the guard's shares there; its device and wall times; one
+          forward call must run one kernel. Its backward kernel at 1,024
+          rays, M=63 and 191: bit for bit its torch transcription, two
+          launches equal, on dyadic weights against autograd through the
+          plain sample_pdf; device and wall times, the plain backward's, the
+          bytes bound; and on peaked weights (98% of a ray's weight in 3
+          adjacent bins, as a trained NeRF's) and opaque ones bit for bit
+          again, with their device times (opaque ones also against autograd
+          on every draw)
   train   the reference-default train step (64+128 samples, 8x256, N_rand
           1024, f32) on a seeded scene shaped like a SCADE ScanNet scene:
           18 train + 2 val views at 468x624, K=20 hypotheses
@@ -210,30 +213,21 @@ RENDER_CHUNK = 16384
 # ~7e-3 (median ~1e-3), so either bound tells the modes apart.
 K1_TOL = 1e-4
 K1_BF16_SHARE_SLACK, K1_BF16_MAX_RATIO, K1_BF16_MEDIAN = 0.01, 2.0, 1e-6
-# K2 exactly (atol, rtol) where the order of the CDF's sums cannot matter:
-# against the plain lookup of the CDF summed in the kernel's order
-# (fused_sampling.cdf_kernel_order) and on dyadic weights. Against the plain
-# sample_pdf on random weights the two CDFs differ by f32 ulps (another
-# order of sums than torch.cumsum's), which the lookup multiplies by bin
-# width / CDF gap, the gap down to 1e-5. There the kernel is held to the
-# plain version's own distance from the same function computed in f64, in
-# the same run: its share of draws within K2_WITNESS at most K2_SHARE_SLACK
-# below the plain version's, and its CDF's largest distance from the f64 CDF
-# at most K2_CDF_RATIO times the plain CDF's. The largest distance of a draw
-# is printed for both but bounds neither: at the 1e-5 guard the function
-# jumps (an interval with a CDF gap under 1e-5 maps to its lower bin), so
-# an ulp of the CDF moves a draw that lies near such a gap by up to a bin
-# width, in either version, at draws that differ between them.
+# K2 against the plain sample_pdf, which builds the CDF in the kernel's
+# order (the JAX package's, fused_sampling.cdf_kernel_order): within
+# K2_TOL (atol, rtol) on random and dyadic weights, and bit for bit on opaque
+# rows (k2_opaque), where the CDF's last ulp decides the 1e-5 guard. The
+# phase prints the share of the opaque rows' empty bins whose CDF gap takes
+# the guard, and of draws that take it.
 K2_TOL = (2e-6, 1e-6)
-K2_WITNESS, K2_SHARE_SLACK, K2_CDF_RATIO = 1e-5, 0.001, 2.0
 # K2's backward kernel exactly against its torch transcription
-# (fused_sampling.sample_pdf_backward_kernel_order); on dyadic weights (the
-# same CDF in every order, so the same intervals) against autograd through
-# the plain sample_pdf with rtol K2_BWD_TOL[0] and an atol of K2_BWD_TOL[1]
-# times the largest entry (at least 1): the gradients' sums run in other
-# orders, and the plain backward's gathers add with atomics
-# (tests/test_torch_cuda.py::grads_close).
-K2_BWD_TOL = (1e-4, 1e-6)
+# (fused_sampling.sample_pdf_backward_kernel_order); against autograd
+# through the plain sample_pdf (the same CDF, so the same intervals and
+# guard decisions) with rtol K2_BWD_TOL[0] and an atol of K2_BWD_TOL[1]
+# times the largest entry (at least 1) on dyadic weights, K2_BWD_TOL[2] on
+# opaque ones: the gradients' sums run in other orders, and the plain
+# backward's gathers add with atomics (tests/test_torch_cuda.py::grads_close).
+K2_BWD_TOL = (1e-4, 1e-6, 1e-4)
 CHECK_TOL = {"rgb_map": 1e-3, "depth_map": 1e-2}
 # The prior phase: the dump's z dimension and K, and the NeRF steps on its output.
 PRIOR_D_LATENT, PRIOR_K, PRIOR_NERF_STEPS = 32, 20, 5
@@ -628,6 +622,35 @@ def k2_peaked(gen: torch.Generator, R: int, M: int):
     return torch.nn.functional.pad(w, (1, 1)).to("cuda")[:, 1:-1]
 
 
+def k2_opaque(gen: torch.Generator, R: int, M: int, width: int = 5):
+    """Weights of rays through an opaque surface, as the renderer's [:, 1:-1]
+    view: ``width`` adjacent bins at a random place hold a Dirichlet draw
+    summing to 1.0 (even rows) or 0.999 (odd rows), every other bin 0. An
+    empty bin's CDF gap, 1e-5 / sum(w'), lies within an ulp of the 1e-5
+    guard (tests/test_torch_cuda.py::opaque)."""
+    n = M - 1
+    h = min(width, n)
+    at = torch.randint(0, n - h + 1, (R, 1), generator=gen)
+    idx = torch.arange(n)
+    e = -torch.log1p(-torch.rand(R, n, generator=gen))  # Exp(1): a Dirichlet's parts
+    e = torch.where((idx >= at) & (idx < at + h), e, 0)
+    total = torch.where(torch.arange(R)[:, None] % 2 == 0, 1.0, 0.999)
+    w = (e / e.sum(-1, keepdim=True) * total).float()
+    return torch.nn.functional.pad(w, (1, 1)).to("cuda")[:, 1:-1]
+
+
+def guard_shares(w, u) -> dict:
+    """On opaque weights: the share of empty bins whose CDF gap is under
+    1e-5 (the guard fires on a draw there), and of draws u that take it."""
+    cdf = sampling._cdf_from_weights(w)
+    M = cdf.shape[-1]
+    k = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    denom = (torch.gather(cdf, -1, torch.clamp(k, max=M - 1))
+             - torch.gather(cdf, -1, torch.clamp(k - 1, min=0)))
+    return dict(empty_bins=(cdf.diff(dim=-1)[w == 0] < 1e-5).double().mean().item(),
+                draws=(denom < 1e-5).double().mean().item())
+
+
 def busiest_entry(w, u) -> float:
     """The mean over the rays of the most gradient terms (a draw's below
     and above, as the backward kernel sorts them) that land on one CDF
@@ -687,39 +710,17 @@ def device_ops(fn) -> list:
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def k2_witness(bins, w, u, got) -> dict:
-    """The K2 bound on random weights (see K2_WITNESS): the kernel's and the
-    plain version's distances from sample_pdf computed in f64, per draw and
-    for the CDF (the kernel's is cdf_kernel_order, whose lookup it matches
-    exactly), the CDFs' in units of 2^-24."""
-    cdf64 = sampling._cdf_from_weights(w.double())
-    oracle = sampling.lookup(cdf64, bins.double(), u.double())
-    plain = sampling.sample_pdf(bins, w, u)
-    ek, ep = (got.double() - oracle).abs(), (plain.double() - oracle).abs()
-    res = dict(kernel_max=ek.max().item(), plain_max=ep.max().item(),
-               kernel_share=(ek <= K2_WITNESS).double().mean().item(),
-               plain_share=(ep <= K2_WITNESS).double().mean().item(),
-               kernel_vs_plain_max=(got - plain).abs().max().item(),
-               cdf_kernel_ulps=(fused_sampling.cdf_kernel_order(w).double() - cdf64).abs().max()
-               .item() * 2**24,
-               cdf_plain_ulps=(sampling._cdf_from_weights(w).double() - cdf64).abs().max().item()
-               * 2**24)
-    res["ok"] = (res["kernel_share"] >= res["plain_share"] - K2_SHARE_SLACK
-                 and res["cdf_kernel_ulps"] <= K2_CDF_RATIO * res["cdf_plain_ulps"])
-    return res
-
-
 def phase_k2(gen: torch.Generator) -> dict:
     """K2 through its launcher at every shape of the main path (a train
     step's 1,024 rays, a render chunk's 16,384 with broadcast draws, and
     65,536), at the fine resampling's M=63 and the P_depth draws' M=191,
-    S=128: exact where the order of the CDF's sums cannot matter, and within
-    the plain version's own distance from an f64 oracle on random weights.
-    Times: the kernel's device µs (CUDA graph), the wall µs of a call of
-    fused_sample_pdf (host included) and of its launcher alone, and events
-    around back-to-back calls (which read the host wherever it is the
-    slower side); the plain sample_pdf; the bytes bound. Then the
-    device operations one forward call runs."""
+    S=128: against the plain sample_pdf (the same CDF law) within K2_TOL on
+    random and dyadic weights, bit for bit on opaque rows, with the guard's
+    shares there. Times: the kernel's device µs (CUDA graph; on opaque rows
+    too), the wall µs of a call of fused_sample_pdf (host included) and of
+    its launcher alone, and events around back-to-back calls (which read
+    the host wherever it is the slower side); the plain sample_pdf; the
+    bytes bound. Then the device operations one forward call runs."""
     S = 128
     shapes = {}
     ok = True
@@ -727,21 +728,27 @@ def phase_k2(gen: torch.Generator) -> dict:
         for M in (63, 191):
             bins, w, u, dyadic = k2_inputs(gen, R, M, S)
             got = fused_sampling.sample_pdf_cuda(bins, w, u)
-            kernel_order = sampling.lookup(fused_sampling.cdf_kernel_order(w), bins, u)
-            err = (got - kernel_order).abs().max().item()
-            exact = bool(torch.allclose(got, kernel_order, atol=K2_TOL[0], rtol=K2_TOL[1]))
+            plain = sampling.sample_pdf(bins, w, u)
+            err = (got - plain).abs().max().item()
+            exact = bool(torch.allclose(got, plain, atol=K2_TOL[0], rtol=K2_TOL[1]))
+            bit_equal = bool(torch.equal(got, plain))
             got_d = fused_sampling.sample_pdf_cuda(bins, dyadic, u)
             plain_d = sampling.sample_pdf(bins, dyadic, u)
             err_d = (got_d - plain_d).abs().max().item()
             exact_d = bool(torch.allclose(got_d, plain_d, atol=K2_TOL[0], rtol=K2_TOL[1]))
             copies = bool(torch.equal(got, fused_sampling.sample_pdf_cuda(
                 bins, w.contiguous(), u.contiguous())))
-            witness = k2_witness(bins, w, u, got)
+            opaque = k2_opaque(gen, R, M)
+            bit_equal_o = bool(torch.equal(fused_sampling.sample_pdf_cuda(bins, opaque, u),
+                                           sampling.sample_pdf(bins, opaque, u)))
+            guard = guard_shares(opaque, u)
             finite = bool(torch.isfinite(got).all())
-            del got, kernel_order, got_d, plain_d
-            shape_ok = exact and exact_d and copies and witness["ok"] and finite
+            del got, plain, got_d, plain_d
+            shape_ok = exact and exact_d and copies and bit_equal_o and finite
             ok = ok and shape_ok
             device_us = graph_us(lambda: fused_sampling.sample_pdf_cuda(bins, w, u))
+            device_us_o = graph_us(lambda: fused_sampling.sample_pdf_cuda(bins, opaque, u))
+            del opaque
             call_us = wall_us(lambda: fused_sampling.fused_sample_pdf(bins, w, u))
             launcher_us = wall_us(lambda: fused_sampling.sample_pdf_cuda(bins, w, u))
             events_us = cuda_ms(lambda: fused_sampling.fused_sample_pdf(bins, w, u), 200) * 1e3
@@ -752,8 +759,10 @@ def phase_k2(gen: torch.Generator) -> dict:
             # ceil(log2(M + 1)) compares, then 6 operations
             ops = R * (M - 1) * 5 + R * S * (math.ceil(math.log2(M + 1)) + 6)
             shapes[f"R{R}_M{M}"] = dict(
-                ok=shape_ok, u_row_stride=u.stride(0), max_abs_err=err, max_abs_err_dyadic=err_d,
-                strided_equals_copies=copies, vs_f64=witness, device_us=device_us,
+                ok=shape_ok, u_row_stride=u.stride(0), max_abs_err=err, bit_equal=bit_equal,
+                max_abs_err_dyadic=err_d, strided_equals_copies=copies,
+                bit_equal_opaque=bit_equal_o, guard_share_opaque=guard, device_us=device_us,
+                device_us_opaque=device_us_o,
                 wall_us=call_us, launcher_wall_us=launcher_us, events_us=events_us,
                 plain_ms=plain_ms,
                 bound_ms=max(nbytes / HBM_BYTES, ops / PEAK_F32) * 1e3,
@@ -771,9 +780,9 @@ def phase_k2(gen: torch.Generator) -> dict:
     ops_kernel = device_ops(lambda: fused_sampling.fused_sample_pdf(bins, w, ub))
     ops_plain = device_ops(lambda: sampling.sample_pdf(bins, w, ub))
     one_kernel = len(ops_kernel) == 1
-    line("k2", S=S, tol=dict(atol=K2_TOL[0], rtol=K2_TOL[1], within=K2_WITNESS,
-                             share_slack=K2_SHARE_SLACK, cdf_ratio=K2_CDF_RATIO,
-                             backward_rtol=K2_BWD_TOL[0], backward_atol_of_max=K2_BWD_TOL[1]),
+    line("k2", S=S, tol=dict(atol=K2_TOL[0], rtol=K2_TOL[1], backward_rtol=K2_BWD_TOL[0],
+                             backward_atol_of_max=K2_BWD_TOL[1],
+                             backward_atol_of_max_opaque=K2_BWD_TOL[2]),
          device_ops_per_call=ops_kernel, plain_device_ops_per_call=len(ops_plain), **shapes,
          backward=bwd)
     if not ok:
@@ -783,8 +792,6 @@ def phase_k2(gen: torch.Generator) -> dict:
     step = [shapes["R1024_M63"], shapes["R1024_M191"]]  # one train step's two launches
     b = bwd["R1024_M191"]  # and its one backward launch
     return dict(max_abs_err=max(s["max_abs_err"] for s in shapes.values()),
-                max_abs_err_vs_sample_pdf=max(s["vs_f64"]["kernel_vs_plain_max"]
-                                              for s in shapes.values()),
                 ms=sum(s["device_us"] for s in step) / 1e3,
                 wall_ms=sum(s["wall_us"] for s in step) / 1e3,
                 plain_ms=sum(s["plain_ms"] for s in step),
@@ -794,6 +801,7 @@ def phase_k2(gen: torch.Generator) -> dict:
                                                         for v in bwd.values()),
                          ms=b["device_us"] / 1e3, wall_ms=b["wall_us"] / 1e3,
                          ms_peaked=b["device_us_peaked"] / 1e3,
+                         ms_opaque=b["device_us_opaque"] / 1e3,
                          plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"]))
 
@@ -803,17 +811,25 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     renderer's [:, 1:-1] view, per-ray draws with 0 and 1, g ~ N(0, 1): bit
     for bit its torch transcription (sample_pdf_backward_kernel_order, all
     three gradients), two launches bit-equal, the weights' view equal to its
-    copy; on dyadic weights (an exact CDF, so the same intervals) against
-    autograd through the plain sample_pdf within K2_BWD_TOL (rtol, and atol
-    of the largest entry). Times: device µs (CUDA graph) and wall µs of the
-    launcher asking for the weights' gradient alone, as the train step does;
-    the plain backward (the forward recomputed, then autograd through it:
-    the backward before this kernel); the bytes bound. Then on peaked
-    weights (k2_peaked, the same bins, draws and g): bit for bit the
-    transcription again, and the device and wall µs; for both kinds of
-    weights the mean over the rays of the busiest entry's terms."""
+    copy; on dyadic weights (an exact CDF) against autograd through the
+    plain sample_pdf within K2_BWD_TOL (rtol, and atol of the largest
+    entry). Times: device µs (CUDA graph) and wall µs of the launcher asking
+    for the weights' gradient alone, as the train step does; the plain
+    backward (the forward recomputed, then autograd through it: the
+    backward before this kernel); the bytes bound. Then on peaked weights
+    (k2_peaked, the same bins, draws and g) and opaque ones (k2_opaque): bit
+    for bit the transcription again, on opaque ones also against autograd
+    through the plain sample_pdf on every draw (K2_BWD_TOL[2]), and the
+    device and wall µs; for uniform and peaked weights the mean over the
+    rays of the busiest entry's terms."""
     bins, w, u, dyadic = k2_inputs(gen, R, M, S)
     g = torch.randn(R, S, generator=gen).to("cuda")
+
+    def rel_err(got, ref, atol):
+        return max(((a - c).abs() / (K2_BWD_TOL[0] * c.abs() + atol
+                                     * max(1.0, c.abs().max().item()))).max().item()
+                   for a, c in zip(got, ref))
+
     got = fused_sampling.sample_pdf_backward_cuda(bins, w, u, g, need_bins=True, need_u=True)
     order = fused_sampling.sample_pdf_backward_kernel_order(bins, w, u, g)
     err = max((a - c).abs().max().item() for a, c in zip(got, order))
@@ -825,19 +841,21 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     got_d = fused_sampling.sample_pdf_backward_cuda(bins, dyadic, u, g, need_bins=True,
                                                     need_u=True)
     leaves = [t.clone().requires_grad_(True) for t in (bins, dyadic, u)]
-    ref_d = torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, g)
-    rel = max(((a - c).abs() / (K2_BWD_TOL[0] * c.abs() + K2_BWD_TOL[1]
-                                * max(1.0, c.abs().max().item()))).max().item()
-              for a, c in zip(got_d, ref_d))
+    rel = rel_err(got_d, torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, g),
+                  K2_BWD_TOL[1])
     finite = all(bool(torch.isfinite(a).all()) for a in got)
-    del got, order, again, got_d, ref_d, leaves
-    peaked = k2_peaked(gen, R, M)
-    got_p = fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g, need_bins=True,
-                                                    need_u=True)
-    exact_p = all(torch.equal(a, c) for a, c in zip(
-        got_p, fused_sampling.sample_pdf_backward_kernel_order(bins, peaked, u, g)))
-    finite = finite and all(bool(torch.isfinite(a).all()) for a in got_p)
-    del got_p
+    del got, order, again, got_d, leaves
+    peaked, opaque = k2_peaked(gen, R, M), k2_opaque(gen, R, M)
+    got_p, got_o = (fused_sampling.sample_pdf_backward_cuda(bins, x, u, g, need_bins=True,
+                                                            need_u=True) for x in (peaked, opaque))
+    exact_p, exact_o = (all(torch.equal(a, c) for a, c in zip(
+        got_x, fused_sampling.sample_pdf_backward_kernel_order(bins, x, u, g)))
+        for got_x, x in ((got_p, peaked), (got_o, opaque)))
+    finite = finite and all(bool(torch.isfinite(a).all()) for a in (*got_p, *got_o))
+    leaves = [t.clone().requires_grad_(True) for t in (bins, opaque, u)]
+    rel_o = rel_err(got_o, torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, g),
+                    K2_BWD_TOL[2])
+    del got_p, got_o, leaves
     wl = w.detach().requires_grad_(True)
     device_us = graph_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
     call_us = wall_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
@@ -846,13 +864,17 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     # per weight: the CDF build's 5 and the reverse scan's 5; per draw:
     # ceil(log2(M + 1)) compares, then 14 operations and 4 adds into the bins
     ops = R * (M - 1) * 10 + R * S * (math.ceil(math.log2(M + 1)) + 18)
-    return dict(ok=exact and twice and copies and rel <= 1.0 and finite and exact_p,
+    return dict(ok=exact and twice and copies and rel <= 1.0 and finite and exact_p
+                and exact_o and rel_o <= 1.0,
                 max_abs_err=err, bit_equal_kernel_order=exact, two_launches_equal=twice,
                 strided_equals_copy=copies, rel_err_vs_autograd_dyadic=rel,
-                bit_equal_kernel_order_peaked=exact_p,
+                bit_equal_kernel_order_peaked=exact_p, bit_equal_kernel_order_opaque=exact_o,
+                rel_err_vs_autograd_opaque=rel_o, guard_share_opaque=guard_shares(opaque, u),
                 device_us=device_us,
                 device_us_peaked=graph_us(
                     lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
+                device_us_opaque=graph_us(
+                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, opaque, u, g)),
                 wall_us=call_us,
                 wall_us_peaked=wall_us(
                     lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
@@ -3093,7 +3115,7 @@ def main() -> int:
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None, check="pass",
              launches_train_phase=train_launches["k2"], launches_tp_phase=tp_launches["k2"],
-             wall_ms=k2["wall_ms"], max_abs_err_vs_sample_pdf=k2["max_abs_err_vs_sample_pdf"]),
+             wall_ms=k2["wall_ms"]),
         dict(name="sample_pdf_bwd", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:172", launches=cli_launches["k2_bwd"],

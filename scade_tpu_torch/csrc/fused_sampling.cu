@@ -17,21 +17,25 @@
 // Design:
 //  - One warp per ray, WARPS rays a block: a train step's 1,024 rays are 256
 //    blocks, about two on each of the 132 SMs. A ray's weights and bins are
-//    read once, coalesced, into its warp's rows of shared memory (8M bytes:
-//    1.5 KB at M = 191), so the launch needs no opt-in to more than 48 KB of
-//    shared memory up to M = 1,536.
-//  - The CDF never leaves the SM. Lane l owns the contiguous segment
-//    [l L, (l + 1) L) of the M-1 weights, L = ceil((M-1) / 32). It sums its
-//    segment serially; a butterfly of shuffles gives every lane the same
-//    total; it divides its segment by the total and sums the quotients
-//    serially; a Kogge-Stone scan of those sums gives its exclusive offset;
-//    it then writes its segment's CDF as a serial sum starting from that
-//    offset. Every add and divide is an explicit round-to-nearest intrinsic,
-//    so nvcc cannot contract or reorder them: the order is fixed and
-//    ops/fused_sampling.py::cdf_kernel_order repeats it with torch ops bit
-//    for bit. It is not torch.cumsum's order, so against the plain
-//    sample_pdf the CDF differs by f32 ulps, which the lookup amplifies by
-//    bin width / denom.
+//    read once, coalesced, into its warp's rows of shared memory (8M bytes
+//    and a scratch row of M/8 + 8 words: 1.6 KB at M = 191), so the launch
+//    needs no opt-in to more than 48 KB of shared memory up to M = 1,442.
+//  - The CDF never leaves the SM, and it is the JAX package's bit for bit:
+//    its sums run in the order XLA gives jnp.sum and jnp.cumsum on the CPU
+//    (ops/sampling.py, ROW_WINDOW and SCAN_BLOCK). The row sum of w': lane
+//    j sums window j of 32 serially from +0 (the row zero-padded to a
+//    multiple of 32, the smaller half of the padding before it); lane 0
+//    sums the window sums serially (windows of 32 again above 32 of them)
+//    and a shuffle gives every lane the total. Every lane divides its
+//    entries. The cumulative sum: lane b sums block b of 16 serially from
+//    +0 in place; lane 0 turns the block totals into the blocks' offsets
+//    by one serial chain (blocks of 16 again above 16 of them); every entry
+//    adds its block's offset. Most lanes wait through the two chains (12
+//    adds and 6 at M = 191). Every add and divide is an explicit
+//    round-to-nearest intrinsic, so nvcc cannot contract or reorder them,
+//    and ops/sampling.py::_cdf_from_weights, the plain version, sums in the
+//    same order: kernel, plain version and JAX package make the same bin and
+//    1e-5-guard decision for every draw.
 //  - Each lane takes every 32nd draw: u is read and out written coalesced.
 //    A binary search in the ray's shared CDF row gives the selections of
 //    the TPU kernel's sweep, u = 0 and u = 1 included (cdf ascends, so
@@ -98,12 +102,13 @@
 // __match_any_sync has few groups to find); owners summing 4 entries at once
 // (slower, 2x on peaked weights); ranks from each draw's key (count_le) in 4
 // rounds in place of the terms' 8 (slower: more registers).
-// The reverse scan to grad_pdf and the sum of grad_pdf pdf use the lane
-// segments of the CDF build: segment sums from the top down, a Kogge-Stone
-// suffix scan over the lanes, serial sums from each lane's offset; a
-// butterfly for the dot product. Every floating-point operation is an
-// explicit round-to-nearest intrinsic. The gradients are written coalesced
-// from shared memory.
+// The reverse scan to grad_pdf runs on the CDF build's blocks of 16: lane b
+// sums block b from its top, lane 0 chains the block totals from the last
+// block down into each block's offset, and every entry adds its block's
+// (XLA's VJP of the cumulative sum uses the same blocks, but sums each
+// entry's suffix anew from its own place). The sum of grad_pdf pdf runs in
+// the row sum's order. Every floating-point operation is an explicit
+// round-to-nearest intrinsic. The weights' gradient is written coalesced.
 
 #include <cuda_runtime.h>
 
@@ -113,43 +118,138 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
+constexpr int ROW_WINDOW = 32;  // the row sum's windows, as ops/sampling.py
+constexpr int SCAN_BLOCK = 16;  // the cumulative sum's blocks, as ops/sampling.py
+
+// The scratch row of a warp's CDF build, in 4-byte words: the window sums,
+// or the block totals of every level. ops/fused_sampling.py::scratch_words.
+__host__ __device__ constexpr int scratch_words(int M) { return M / 8 + 8; }
+
+// x[0, n) summed in ops/sampling.py::_row_sum's order: while more than
+// ROW_WINDOW terms are left, lane j sums window j serially from +0 into tmp
+// (the row zero-padded at both ends, the smaller half first), and the
+// window sums are the next level's terms; then lane 0 sums the last level
+// serially from +0, and a shuffle gives every lane the total. x is written
+// before the call and synced.
+__device__ float row_sum(const float* x, int n, float* tmp, int lane) {
+  while (n > ROW_WINDOW) {
+    const int k = (n + ROW_WINDOW - 1) / ROW_WINDOW;
+    const int pad = (k * ROW_WINDOW - n) / 2;
+    for (int j = lane; j < k; j += 32) {
+      const int lo = max(j * ROW_WINDOW - pad, 0);
+      const int hi = min((j + 1) * ROW_WINDOW - pad, n);
+      float acc = 0.f;
+      for (int i = lo; i < hi; ++i) acc = __fadd_rn(acc, x[i]);
+      tmp[j] = acc;
+    }
+    __syncwarp();
+    x = tmp;
+    tmp += k;
+    n = k;
+  }
+  float s = 0.f;
+  if (lane == 0)
+    for (int i = 0; i < n; ++i) s = __fadd_rn(s, x[i]);
+  return __shfl_sync(FULL, s, 0);
+}
+
+// The block offsets of a cumulative sum, by one thread: t[0, k) (block
+// totals) becomes its exclusive prefix sums in ops/sampling.py's order,
+// with tmp as scratch. Up to SCAN_BLOCK terms a serial sum from +0; above,
+// the same blocked sum one level up (a level a loop pass going up, then
+// the offsets coming down). Four levels cover 16^5 terms, more than any
+// row the launchers take.
+__device__ void block_offsets(float* t, int k, float* tmp) {
+  float* level[4];
+  int len[4];
+  int top = 0;
+  level[0] = t;
+  len[0] = k;
+  while (len[top] > SCAN_BLOCK) {  // in-block sums in place, totals one level up
+    float* x = level[top];
+    const int m = len[top];
+    float* up = top == 0 ? tmp : level[top] + m;
+    const int kb = (m + SCAN_BLOCK - 1) / SCAN_BLOCK;
+    for (int b = 0; b < kb; ++b) {
+      float run = 0.f;
+      for (int i = b * SCAN_BLOCK; i < min((b + 1) * SCAN_BLOCK, m); ++i) {
+        run = __fadd_rn(run, x[i]);
+        x[i] = run;
+      }
+      up[b] = run;
+    }
+    level[++top] = up;
+    len[top] = kb;
+  }
+  float e = 0.f;  // the top level's exclusive sums, in place
+  for (int b = 0; b < len[top]; ++b) {
+    const float v = level[top][b];
+    level[top][b] = e;
+    e = __fadd_rn(e, v);
+  }
+  for (int l = top - 1; l >= 0; --l) {  // exclusive = the inclusive sums shifted by one
+    float* x = level[l];
+    const float* off = level[l + 1];
+    for (int i = len[l] - 1; i > 0; --i)
+      x[i] = __fadd_rn(x[i - 1], off[(i - 1) / SCAN_BLOCK]);
+    x[0] = 0.f;
+  }
+}
+
+// x[0, n) becomes its cumulative sum in ops/sampling.py::_inclusive_scan's
+// order: up to SCAN_BLOCK terms lane 0 sums serially; above, lane b sums
+// block b serially from +0 in place, lane 0 turns the block totals into the
+// blocks' offsets (block_offsets), and every entry adds its block's.
+// x is written before the call and synced; ends with a __syncwarp.
+__device__ void inclusive_scan(float* x, int n, float* tmp, int lane) {
+  if (n <= SCAN_BLOCK) {
+    if (lane == 0) {
+      float run = 0.f;
+      for (int i = 0; i < n; ++i) {
+        run = __fadd_rn(run, x[i]);
+        x[i] = run;
+      }
+    }
+    __syncwarp();
+    return;
+  }
+  const int k = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
+  for (int b = lane; b < k; b += 32) {
+    float run = 0.f;
+    for (int i = b * SCAN_BLOCK; i < min((b + 1) * SCAN_BLOCK, n); ++i) {
+      run = __fadd_rn(run, x[i]);
+      x[i] = run;
+    }
+    tmp[b] = run;
+  }
+  __syncwarp();
+  if (lane == 0) block_offsets(tmp, k, tmp + k);
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) x[i] = __fadd_rn(x[i], tmp[i / SCAN_BLOCK]);
+  __syncwarp();
+}
+
 // Loads ray r's bins into bs and builds its CDF into cs (cs[0] = 0), in
 // the order the header describes; the pdf goes to pdf when it is not null.
-// Returns the total of w' (the same in every lane). Ends with a __syncwarp.
+// tmp is the warp's scratch row. Returns the total of w' (the same in every
+// lane). Ends with a __syncwarp.
 __device__ __forceinline__ float build_cdf(const float* __restrict__ w,
                                            const float* __restrict__ b, float* cs, float* bs,
-                                           float* pdf, int M, int lane) {
-  float* seg = cs + 1;  // w', then pdf where pdf is null, then cdf[1:]
+                                           float* pdf, float* tmp, int M, int lane) {
+  float* seg = cs + 1;  // w', then pdf, then cdf[1:]
   const int n = M - 1;
   for (int i = lane; i < n; i += 32) seg[i] = __fadd_rn(w[i], 1e-5f);
   for (int i = lane; i < M; i += 32) bs[i] = b[i];
   if (lane == 0) cs[0] = 0.f;
   __syncwarp();
-  float* ps = pdf ? pdf : seg;
-
-  const int len = (n + 31) / 32;
-  const int lo = min(lane * len, n);
-  const int hi = min(lo + len, n);
-  float s = 0.f;
-  for (int i = lo; i < hi; ++i) s = __fadd_rn(s, seg[i]);
-  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(FULL, s, off));
-  float t = 0.f;  // s is now the row's total in every lane
-  for (int i = lo; i < hi; ++i) {
+  const float s = row_sum(seg, n, tmp, lane);
+  for (int i = lane; i < n; i += 32) {
     const float p = __fdiv_rn(seg[i], s);
-    ps[i] = p;
-    t = __fadd_rn(t, p);
-  }
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(FULL, t, off);
-    if (lane >= off) t = __fadd_rn(y, t);
-  }
-  float c = __shfl_up_sync(FULL, t, 1);
-  if (lane == 0) c = 0.f;
-  for (int i = lo; i < hi; ++i) {
-    c = __fadd_rn(c, ps[i]);
-    seg[i] = c;
+    seg[i] = p;
+    if (pdf) pdf[i] = p;
   }
   __syncwarp();
+  inclusive_scan(seg, n, tmp, lane);
   return s;
 }
 
@@ -178,9 +278,10 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * WARPS + warp;
   if (r >= R) return;  // a whole warp; the kernel has no block-wide barrier
-  float* cs = sm + (size_t)warp * 2 * M;  // cdf row
-  float* bs = cs + M;                     // bins row
-  build_cdf(weights + r * weights_stride, bins + r * bins_stride, cs, bs, nullptr, M, lane);
+  float* cs = sm + (size_t)warp * (2 * M + scratch_words(M));  // cdf row
+  float* bs = cs + M;                                          // bins row
+  build_cdf(weights + r * weights_stride, bins + r * bins_stride, cs, bs, nullptr, bs + M, M,
+            lane);
 
   const float* ur = u + r * u_stride;
   float* o = out + (size_t)r * S;
@@ -204,10 +305,11 @@ constexpr int ROUNDS = TILE / 16;  // terms a lane holds a tile: 2 a draw
 
 // Shared memory of one warp of the backward, in 4-byte words: cdf, bins,
 // pdf and the sums of the CDF entries and bins (M each), the counts and
-// list starts (M + 1), and the sorted terms of the CDF entries and the bins
-// (2 TILE each). ops/fused_sampling.py checks the same size.
+// list starts (M + 1), the sorted terms of the CDF entries and the bins
+// (2 TILE each), and the scratch row. ops/fused_sampling.py checks the same
+// size.
 __host__ __device__ constexpr size_t backward_words(int M) {
-  return 6 * (size_t)M + 1 + 4 * TILE;
+  return 6 * (size_t)M + 1 + 4 * TILE + scratch_words(M);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -230,6 +332,7 @@ __global__ void __launch_bounds__(THREADS)
   int* start = reinterpret_cast<int*>(gb + M);               // counts, then list starts
   float* tc = reinterpret_cast<float*>(start + M + 1);       // sorted cdf terms
   float* tb = tc + 2 * TILE;                                 // sorted bin terms
+  float* tmp = tb + 2 * TILE;                                // scratch row
   const bool want_bins = grad_bins != nullptr;
   const unsigned lower = (1u << lane) - 1u;  // the lanes below this one
   const float* ur = u + r * u_stride;
@@ -249,7 +352,7 @@ __global__ void __launch_bounds__(THREADS)
     if (want_bins) gb[i] = 0.f;
   }
   const float s = build_cdf(weights + r * weights_stride, bins + r * bins_stride, cs, bs, pdf,
-                            M, lane);
+                            tmp, M, lane);
 
   for (int t0 = 0; t0 < S; t0 += TILE) {
     for (int i = lane; i <= M; i += 32) start[i] = 0;
@@ -365,29 +468,38 @@ __global__ void __launch_bounds__(THREADS)
     __syncwarp();  // start[] and the terms are read before the next tile
   }
 
-  // grad_pdf[i] = sum of gc[k] for k > i, on the lane segments
+  // grad_pdf[i] = sum of gc[k] for k > i, in the CDF build's blocks: lane b
+  // sums block b from its top, lane 0 chains the block totals from the last
+  // block down into each block's offset, every entry adds its block's
   const int n = M - 1;
-  const int len = (n + 31) / 32;
-  const int lo = min(lane * len, n);
-  const int hi = min(lo + len, n);
-  float tot = 0.f;
-  for (int i = hi - 1; i >= lo; --i) tot = __fadd_rn(tot, gc[i + 1]);
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_down_sync(FULL, tot, off);
-    if (lane + off < 32) tot = __fadd_rn(tot, y);
+  const int k = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
+  for (int b = lane; b < k; b += 32) {
+    float c = 0.f;
+    for (int i = min((b + 1) * SCAN_BLOCK, n) - 1; i >= b * SCAN_BLOCK; --i) {
+      c = __fadd_rn(c, gc[i + 1]);
+      gc[i + 1] = c;
+    }
+    tmp[b] = c;
   }
-  float c = __shfl_down_sync(FULL, tot, 1);
-  if (lane == 31) c = 0.f;
-  float d = 0.f;
-  for (int i = hi - 1; i >= lo; --i) {
-    c = __fadd_rn(c, gc[i + 1]);
-    gc[i + 1] = c;  // grad_pdf[i]
-    d = __fadd_rn(d, __fmul_rn(c, pdf[i]));
-  }
-  for (int off = 16; off > 0; off >>= 1) d = __fadd_rn(d, __shfl_xor_sync(FULL, d, off));
-  for (int i = lo; i < hi; ++i) gc[i + 1] = __fdiv_rn(__fsub_rn(gc[i + 1], d), s);
   __syncwarp();
-  for (int i = lane; i < n; i += 32) grad_w[(size_t)r * n + i] = gc[i + 1];
+  if (lane == 0) {
+    float e = 0.f;
+    for (int b = k - 1; b >= 0; --b) {
+      const float v = tmp[b];
+      tmp[b] = e;
+      e = __fadd_rn(e, v);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) {
+    const float gp = __fadd_rn(gc[i + 1], tmp[i / SCAN_BLOCK]);  // grad_pdf[i]
+    gc[i + 1] = gp;
+    pdf[i] = __fmul_rn(gp, pdf[i]);
+  }
+  __syncwarp();
+  const float d = row_sum(pdf, n, tmp, lane);  // sum of grad_pdf pdf
+  for (int i = lane; i < n; i += 32)
+    grad_w[(size_t)r * n + i] = __fdiv_rn(__fsub_rn(gc[i + 1], d), s);
   if (want_bins)
     for (int i = lane; i < M; i += 32) grad_bins[(size_t)r * M + i] = gb[i];
 }
@@ -396,14 +508,14 @@ __global__ void __launch_bounds__(THREADS)
 
 // bins (R, M), weights (R, M-1), u (R, S): f32, inner stride 1, row strides
 // in elements (any, 0 included). out (R, S) f32 contiguous. Returns a
-// cudaError_t; 0 is success. Above M = 1,536 the rows need more than 48 KB
+// cudaError_t; 0 is success. Above M = 1,442 the rows need more than 48 KB
 // of shared memory a block, and the kernel is opted in to it on each call.
 extern "C" int sample_pdf_fused(const float* bins, long long bins_stride, const float* weights,
                                 long long weights_stride, const float* u, long long u_stride,
                                 float* out, int R, int M, int S, void* stream) {
   if (R <= 0 || S <= 0) return 0;
   if (M < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)WARPS * 2 * M * sizeof(float);
+  const size_t smem = (size_t)WARPS * (2 * M + scratch_words(M)) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         sample_pdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -418,7 +530,7 @@ extern "C" int sample_pdf_fused(const float* bins, long long bins_stride, const 
 // bins (R, M), weights (R, M-1), u and g (R, S): f32, inner stride 1, row
 // strides in elements (any, 0 included). grad_w (R, M-1), grad_bins (R, M)
 // and grad_u (R, S): f32 contiguous; grad_bins and grad_u may be null (not
-// asked for). Returns a cudaError_t; 0 is success. Above M = 426 a block
+// asked for). Returns a cudaError_t; 0 is success. Above M = 416 a block
 // needs more than 48 KB of shared memory, and the kernel is opted in to it
 // on each call.
 extern "C" int sample_pdf_backward(const float* bins, long long bins_stride,

@@ -2,24 +2,27 @@
 
 Replaces the Pallas kernel ``scade_tpu/ops/fused_sampling.py::_lookup_kernel``
 and the CDF build the JAX package runs before it; the backward kernel is the
-counterpart of its ``_bwd`` (:172), a VJP of the plain ``sample_pdf`` that
-XLA runs in a fixed order. The CUDA source is ``csrc/fused_sampling.cu``;
-its header says what bounds each kernel on the card (bytes) and how one warp
-per ray builds the CDF in shared memory, inverts it, and for the backward
-sorts each draw's gradient terms by entry (a stable counting sort on
-integers) so that each entry's owner adds them in a fixed order, reading
-strided weights and broadcast draws in place.
+counterpart of its ``_bwd`` (:172), a VJP of the plain ``sample_pdf``. The
+CUDA source is ``csrc/fused_sampling.cu``; its header says what bounds each
+kernel on the card (bytes) and how one warp per ray builds the CDF in shared
+memory, inverts it, and for the backward sorts each draw's gradient terms by
+entry (a stable counting sort on integers) so that each entry's owner adds
+them in a fixed order, reading strided weights and broadcast draws in place.
+
+The port has one CDF law: ``sampling._cdf_from_weights``, summed in the
+order XLA gives the JAX package on the CPU (see ``sampling.ROW_WINDOW``).
+The kernels build it in that order with round-to-nearest intrinsics, so the
+CDF, and with it every bin and 1e-5-guard decision, is the JAX package's
+bit for bit in the kernels and in the plain version alike;
+``cdf_kernel_order`` is another name for it.
 
 ``fused_sample_pdf`` is the entry point. For CUDA tensors it launches the
 kernels (``sample_pdf_cuda`` forward, ``sample_pdf_backward_cuda`` backward)
 and raises if a launch fails; only for CPU tensors does it take the plain
 ``sampling.sample_pdf`` and autograd through it, which is also the oracle.
-The kernels sum in another order than ``torch.cumsum`` and autograd;
-``cdf_kernel_order`` builds the CDF in the kernel's order with torch ops, so
-that ``sampling.lookup(cdf_kernel_order(w), bins, u)`` is the forward
-kernel's function bit for bit, and ``sample_pdf_backward_kernel_order``
-repeats the backward kernel's arithmetic bit for bit (tests and
-``chip_smoke.py`` use them; the main path does not).
+``sample_pdf_backward_kernel_order`` repeats the backward kernel's
+arithmetic with torch ops bit for bit (tests and ``chip_smoke.py`` use it;
+the main path does not).
 """
 
 from __future__ import annotations
@@ -36,6 +39,12 @@ LANES = 32  # a warp: the kernel's lanes per ray
 WARPS = 4  # rays per block, as csrc/fused_sampling.cu
 TILE = 128  # draws the backward kernel sorts at a time, as csrc/fused_sampling.cu
 SMEM_LIMIT = 227 * 1024  # shared memory a block can use on Hopper
+
+
+def scratch_words(M):
+    """The CDF build's scratch row a warp, in 4-byte words (the window and
+    block totals of every level), as csrc/fused_sampling.cu."""
+    return M // 8 + 8
 
 
 @functools.cache
@@ -59,9 +68,9 @@ def _backward_entry():
 def _check_inputs(what, tensors, rows_per_warp, words_per_warp=0):
     """The launchers' argument checks: ``tensors`` are bins (R, M), weights
     (R, M-1), then tensors of shape (R, S); ``rows_per_warp`` rows of M
-    4-byte words and ``words_per_warp`` more a warp in shared memory. Every
-    check but the device's comes first, so that each shows on CPU tensors.
-    Returns R, M, S."""
+    4-byte words, the CDF build's scratch row and ``words_per_warp`` more a
+    warp in shared memory. Every check but the device's comes first, so that
+    each shows on CPU tensors. Returns R, M, S."""
     names = ("bins", "weights", "u", "g")[:len(tensors)]
     if any(t.dim() != 2 for t in tensors):
         raise ValueError(f"{what}: {', '.join(names)} must be 2-D, got "
@@ -84,7 +93,7 @@ def _check_inputs(what, tensors, rows_per_warp, words_per_warp=0):
     if not (bins.is_cuda and all(t.device == bins.device for t in tensors)):
         raise ValueError(f"{what}: needs CUDA tensors on one device, got "
                          f"{', '.join(str(t.device) for t in tensors)}")
-    if WARPS * (rows_per_warp * M + words_per_warp) * 4 > SMEM_LIMIT:
+    if WARPS * (rows_per_warp * M + scratch_words(M) + words_per_warp) * 4 > SMEM_LIMIT:
         raise ValueError(f"{what}: M={M} bins exceed shared memory")
     return R, M, S
 
@@ -144,63 +153,32 @@ def sample_pdf_backward_cuda(bins, weights, u, g, need_bins=False, need_u=False)
 sample_pdf_backward_cuda.launches = 0
 
 
-def _lanes(x, L):
-    """(..., n) → (..., 32, L): lane l's segment [l L, (l+1) L), padded
-    with zeros, which add exactly."""
-    return torch.nn.functional.pad(x, (0, LANES * L - x.shape[-1])).unflatten(-1, (LANES, L))
+# The CDF the kernels build: the plain version's, in the same order of sums.
+cdf_kernel_order = sampling._cdf_from_weights
 
 
-def _butterfly(s):
-    """The kernel's xor-shuffle sum over the lanes (..., 32): every lane
-    ends with the same total; lane 0's is returned, (..., 1)."""
-    lane = torch.arange(LANES, device=s.device)
-    for off in (16, 8, 4, 2, 1):
-        s = s + s[..., lane ^ off]
-    return s[..., :1]
-
-
-def _cdf_kernel_order_parts(weights):
-    """``cdf_kernel_order``, and the pdf's lane segments (..., 32, L) and the
-    total of w' (..., 1) that the kernels compute on the way."""
-    n = weights.shape[-1]
-    L = -(-n // LANES)
-    seg = _lanes(weights + 1e-5, L)
-    s = torch.zeros_like(seg[..., 0])
-    for j in range(L):
-        s = s + seg[..., j]
-    s = _butterfly(s)
-    pdf = seg / s[..., None]
-    t = torch.zeros_like(seg[..., 0])
-    for j in range(L):
-        t = t + pdf[..., j]
-    for off in (1, 2, 4, 8, 16):
-        t = torch.cat([t[..., :off], t[..., :-off] + t[..., off:]], -1)
-    c = torch.cat([torch.zeros_like(t[..., :1]), t[..., :-1]], -1)
-    cdf = []
-    for j in range(L):
-        c = c + pdf[..., j]
-        cdf.append(c)
-    cdf = torch.stack(cdf, -1).flatten(-2)[..., :n]
-    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1), pdf, s
-
-
-def cdf_kernel_order(weights):
-    """The CDF of ``sampling._cdf_from_weights`` summed in the kernel's order:
-    lane l of a warp owns the segment [l L, (l+1) L) of the M-1 weights,
-    L = ceil((M-1) / 32); segment sums, a butterfly for the total, the
-    divide, segment sums of the quotients, a Kogge-Stone scan of those for
-    each lane's offset, then serial sums from the offsets. Each step is an
-    f32 add or divide, as the kernel's round-to-nearest intrinsics.
-    weights (..., M-1) → (..., M)."""
-    return _cdf_kernel_order_parts(weights)[0]
+def _suffix_sums(x):
+    """The reverse scan of the backward kernel: out[i] = sum of x[j] for
+    j >= i over x (..., n), in the CDF build's blocks of SCAN_BLOCK: each
+    block's running sums from its top, the block totals' running sums from
+    the last block down (each block's offset the sum of those after it),
+    then one add an entry."""
+    n = x.shape[-1]
+    B = sampling.SCAN_BLOCK
+    blocks = torch.nn.functional.pad(x, (0, -n % B)).unflatten(-1, (-1, B))
+    inner = sampling._serial_sums(blocks.flip(-1)).flip(-1)
+    totals = inner[..., 0]
+    after = sampling._serial_sums(totals.flip(-1)).flip(-1)[..., 1:]
+    offsets = torch.cat([after, torch.zeros_like(totals[..., :1])], -1)
+    return (inner + offsets[..., None]).flatten(-2)[..., :n]
 
 
 def sample_pdf_backward_kernel_order(bins, weights, u, g):
-    """The VJP of ``lookup(cdf_kernel_order(weights), bins, u)`` for the
-    upstream gradient g, in the backward kernel's order of operations, with
-    torch ops: bins (R, M), weights (R, M-1), u and g (R, S) →
-    (grad_bins, grad_weights, grad_u). Per draw, with below/above, the
-    interpolant t and the guarded denom of the forward:
+    """The VJP of ``sample_pdf(bins, weights, u)`` for the upstream gradient
+    g, in the backward kernel's order of operations, with torch ops: bins
+    (R, M), weights (R, M-1), u and g (R, S) → (grad_bins, grad_weights,
+    grad_u). Per draw, with below/above, the interpolant t and the guarded
+    denom of the forward (the same CDF, so the same decisions):
       gu = g (b[above] - b[below]) / denom           → grad_u
       b[below] += g - g t,  b[above] += g t           (bins)
       cdf[below] += gu t - gu,  cdf[above] += -gu t   (or cdf[below] += -gu
@@ -208,15 +186,11 @@ def sample_pdf_backward_kernel_order(bins, weights, u, g):
     Each bin's and CDF entry's sum runs over the draws in index order, a
     draw's below before its above (the kernel sorts the terms by entry,
     stably, and the lane that owns an entry adds its list); cdf[0] takes
-    none. Then, on the lanes' segments of the CDF entries 1..M-1, the
-    reverse scan to grad_pdf (segment sums from the top down, a Kogge-Stone
-    suffix scan of those, serial sums from each lane's offset), d = sum
-    grad_pdf pdf (each lane's terms from the top down, then a butterfly),
-    and grad_w = (grad_pdf - d) / sum(w')."""
-    R, M = bins.shape
-    n = M - 1
-    cdf, pdf, s = _cdf_kernel_order_parts(weights)
-    L = pdf.shape[-1]
+    none. Then grad_pdf, the reverse scan of the CDF entries 1..M-1
+    (``_suffix_sums``), d = sum grad_pdf pdf in the row sum's order
+    (``sampling._row_sum``), and grad_w = (grad_pdf - d) / sum(w')."""
+    M = bins.shape[-1]
+    cdf, pdf, s = sampling._cdf_parts(weights)
     inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=M - 1)
@@ -242,22 +216,9 @@ def sample_pdf_backward_kernel_order(bins, weights, u, g):
         gc = torch.where(at_a, gc + g_ca[:, j:j + 1], gc)
         gb = torch.where(at_b, gb + g_bb[:, j:j + 1], gb)
         gb = torch.where(at_a, gb + g_ba[:, j:j + 1], gb)
-    seg = _lanes(gc[:, 1:], L)  # lane l's CDF entries 1 + [l L, (l+1) L)
-    tot = torch.zeros_like(seg[..., 0])
-    for j in reversed(range(L)):
-        tot = tot + seg[..., j]
-    for off in (1, 2, 4, 8, 16):
-        tot = torch.cat([tot[..., :-off] + tot[..., off:], tot[..., -off:]], -1)
-    c = torch.cat([tot[..., 1:], torch.zeros_like(tot[..., :1])], -1)
-    d = torch.zeros_like(c)
-    g_pdf = [None] * L
-    for j in reversed(range(L)):
-        c = c + seg[..., j]
-        g_pdf[j] = c
-        d = d + c * pdf[..., j]
-    g_pdf = torch.stack(g_pdf, -1)
-    g_w = ((g_pdf - _butterfly(d)[..., None]) / s[..., None]).flatten(-2)[..., :n]
-    return gb, g_w, gu
+    g_pdf = _suffix_sums(gc[:, 1:])
+    d = sampling._row_sum(g_pdf * pdf)[..., None]
+    return gb, (g_pdf - d) / s, gu
 
 
 class _FusedSamplePdf(torch.autograd.Function):

@@ -66,11 +66,64 @@ def merge_sorted(a, b, va=None, vb=None):
     return merged, torch.gather(vals, -2, idx)
 
 
-def _cdf_from_weights(weights):
+# The CDF's order of sums: the JAX package's, as XLA runs it on the CPU (its
+# optimized HLO). A row sum of more than ROW_WINDOW terms becomes windows of
+# ROW_WINDOW (the row zero-padded to a multiple of ROW_WINDOW, the padding
+# split between the two ends, the smaller half first), each window summed in
+# order, then the window sums summed the same way. A cumulative sum of more
+# than SCAN_BLOCK terms becomes blocks of SCAN_BLOCK from the start, each
+# summed cumulatively in order, and each entry is its in-block sum plus its
+# block's offset: the cumulative sum of the block totals before it, taken
+# the same way. Every serial sum starts from +0.
+ROW_WINDOW = 32
+SCAN_BLOCK = 16
+
+
+def _serial_sums(x):
+    """The running sums of x (..., n) in order from +0 → (..., n)."""
+    c = torch.zeros_like(x[..., :1])[..., 0]
+    out = []
+    for j in range(x.shape[-1]):
+        c = c + x[..., j]
+        out.append(c)
+    return torch.stack(out, -1)
+
+
+def _row_sum(x):
+    """x (..., n) summed over its last axis in the JAX package's order → (...)."""
+    n = x.shape[-1]
+    if n <= ROW_WINDOW:
+        return _serial_sums(x)[..., -1]
+    pad = -n % ROW_WINDOW
+    x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).unflatten(-1, (-1, ROW_WINDOW))
+    return _row_sum(_serial_sums(x)[..., -1])
+
+
+def _inclusive_scan(x):
+    """The cumulative sum of x (..., n) over its last axis in the JAX
+    package's order."""
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return _serial_sums(x)
+    blocks = torch.nn.functional.pad(x, (0, -n % SCAN_BLOCK)).unflatten(-1, (-1, SCAN_BLOCK))
+    prefix = _serial_sums(blocks)
+    before = _inclusive_scan(prefix[..., -1])[..., :-1]
+    offsets = torch.cat([torch.zeros_like(before[..., :1]), before], -1)
+    return (prefix + offsets[..., None]).flatten(-2)[..., :n]
+
+
+def _cdf_parts(weights):
+    """The CDF of ``weights`` (..., M-1) → (..., M), with the pdf (..., M-1)
+    and the total of w' (..., 1) it is built from."""
     weights = weights + 1e-5  # prevent nans
-    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
-    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    total = _row_sum(weights)[..., None]
+    pdf = weights / total
+    cdf = _inclusive_scan(pdf)
+    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1), pdf, total
+
+
+def _cdf_from_weights(weights):
+    return _cdf_parts(weights)[0]
 
 
 def _interp(u, cdf_below, cdf_above, bins_below, bins_above):

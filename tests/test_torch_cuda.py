@@ -22,19 +22,19 @@ passes within the share's slack of 0.01, not above it; both at most
 the other mode fails either bound. Point counts around the 128-point tile
 and two tiles check the masked edge and a last block with few points;
 40,000 points (313 tiles) make the persistent blocks walk several tiles
-each. K2 2e-6/1e-6 where the
-order of its sums cannot matter: against the plain lookup of the CDF summed
-in the kernel's order (cdf_kernel_order), and against the plain sample_pdf
-on dyadic weights, which every order sums exactly; its strided and
-zero-stride inputs exactly as their contiguous copies. K2's backward kernel
-bit for bit against sample_pdf_backward_kernel_order, the same on every
-launch (it adds in a fixed order, with no atomics), and against autograd
-through the plain sample_pdf at rtol 1e-4 with an atol of 1e-6 of the
-largest entry on dyadic weights; on random weights, and on peaked ones
-(~87 terms an entry, whose sums in two orders differ by up to 1.8e-6 of
-the largest entry), with an atol of 1e-4 of the largest entry, on the draws
-that f32 can decide (``decidable``; the plain backward's own atomics add in
-no fixed order there). A resumed CLI run
+each. K2 2e-6/1e-6 against the plain
+lookup of the same CDF (cdf_kernel_order, the plain version's law) and on
+dyadic weights, and bit for bit on opaque rows (``opaque``), where an ulp of
+the CDF decides the 1e-5 guard; its strided and zero-stride inputs exactly
+as their contiguous copies. K2's backward kernel bit for bit against
+sample_pdf_backward_kernel_order, the same on every launch (it adds in a
+fixed order, with no atomics), and against autograd through the plain
+sample_pdf on every draw (both decide bins and guard on one CDF) at rtol
+1e-4 with an atol of 1e-6 of the largest entry on dyadic weights; on
+random, opaque and peaked ones 1e-4 of it (peaked: ~87 terms an entry,
+whose sums in two orders differ by up to 1.8e-6 of the largest entry;
+grad_w = (grad_pdf - d) / sum(w') is a difference of terms that can be far
+larger than itself). A resumed CLI run
 on the card equals a straight one leaf by leaf. The renderer as in
 chip_smoke.py.
 """
@@ -112,11 +112,28 @@ def peaked(rng, R, M, exact):
     return w
 
 
-def backward_case(M, R, S, exact, seed=0, peak=False):
+def opaque(rng, R, M, width=5):
+    """Weights of rays through an opaque surface: ``width`` adjacent bins at
+    a random place hold a Dirichlet draw summing to 1.0 (even rows) or 0.999
+    (odd rows), every other bin 0. An empty bin's CDF gap, 1e-5 / sum(w'),
+    sits at the 1e-5 guard, so which side of it the gap falls on is decided
+    by the CDF's last ulp (167 or 168 ulps of 2^-24 below 1): these rows
+    show whether two CDFs sum in one order."""
+    n = M - 1
+    h = min(width, n)
+    at = rng.integers(0, n - h + 1, R)
+    w = np.zeros((R, n), np.float32)
+    for r in range(R):
+        w[r, at[r]:at[r] + h] = rng.dirichlet(np.ones(h)) * (1.0 if r % 2 == 0 else 0.999)
+    return w
+
+
+def backward_case(M, R, S, exact, seed=0, peak=False, opaque_rows=False):
     """Seeded numpy inputs of K2's backward: strictly ascending bins, random
-    or dyadic (``exact``) weights, ``peaked`` where ``peak``, draws with 0,
-    1e-8, 1 - 1e-7, 0.5 and 1 first, row 1 (M > 2) a guard_row with 5 draws
-    in its narrow gaps, and an upstream gradient g ~ N(0, 1)."""
+    or dyadic (``exact``) weights, ``peaked`` where ``peak``, ``opaque``
+    where ``opaque_rows``, draws with 0, 1e-8, 1 - 1e-7, 0.5 and 1 first,
+    row 1 (M > 2) a guard_row with 5 draws in its narrow gaps, and an
+    upstream gradient g ~ N(0, 1)."""
     rng = np.random.default_rng(seed + M + 1000 * exact)
     bins = (0.5 + np.cumsum(rng.uniform(0.005, 0.06, (R, M)), -1)).astype(np.float32)
     w = dyadic(rng, R, M) if exact else rng.uniform(0, 1, (R, M - 1)).astype(np.float32)
@@ -126,39 +143,17 @@ def backward_case(M, R, S, exact, seed=0, peak=False):
     g = rng.standard_normal((R, S)).astype(np.float32)
     if peak:
         w = peaked(rng, R, M, exact)
+    if opaque_rows:
+        w = opaque(rng, R, M)
     if M > 2 and R > 1 and S >= 10:
         w[1] = guard_row(M, exact)
         u[1, 5:10] = (np.arange(1, 6) + 0.5) / 2**17
     return bins, w, u, g
 
 
-def decidable(bins, w, u, ulps=16):
-    """1 on the draws where sample_pdf's gradient is well-conditioned in f32,
-    0 elsewhere; a float tensor of u's shape. Two f32 CDFs summed in other
-    orders differ by a few ulps of their entries, and the gradient is a
-    ratio of CDF differences that jumps at every CDF entry and at the 1e-5
-    guard. So a draw counts only where, by the CDF summed in f64 and with
-    ``ulps`` ulps of the entries as the error: no entry but cdf[0] lies
-    within the error of u; the guard's decision is further than the error
-    from 1e-5; and the error is at most 1e-4 of the denominator."""
-    cdf = sampling._cdf_from_weights(w.double())
-    u = u.double()
-    inds = torch.searchsorted(cdf, u, right=True)
-    below = torch.clamp(inds - 1, min=0)
-    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
-    ca = torch.gather(cdf, -1, above)
-    denom = ca - torch.gather(cdf, -1, below)
-    err = ulps * 2.0**-24 * ca
-    clear = (denom - 1e-5).abs() > err
-    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
-    near = ((cdf[..., 1:, None] - u[..., None, :]).abs() <= ulps * 2.0**-24
-            * cdf[..., 1:, None]).any(-2)
-    return (clear & (err <= 1e-4 * denom) & ~near).float()
-
-
 def grads_close(got, ref, exact):
     """The backward's bound against another order of its sums (see the
-    module docstring): rtol 1e-4, atol 1e-6 (exact CDF) or 1e-4 of the
+    module docstring): rtol 1e-4, atol 1e-6 (dyadic weights) or 1e-4 of the
     largest entry, at least 1."""
     for a, b in zip(got, ref):
         scale = max(1.0, b.abs().max().item())
@@ -227,7 +222,7 @@ def test_k1_backward_is_the_plain_gradient(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [63, 191, 2])
+@pytest.mark.parametrize("M", [63, 191, 2, 300, 1100])
 @pytest.mark.parametrize("R,S", [(1000, 128), (37, 128), (5, 3)])
 def test_k2_matches_plain(cuda, R, S, M):
     gen = torch.Generator().manual_seed(R + M)
@@ -259,42 +254,50 @@ def test_k2_matches_plain(cuda, R, S, M):
     torch.testing.assert_close(fused_sampling.sample_pdf_cuda(bins, w, ub),
                                fused_sampling.sample_pdf_cuda(bins, w, ub.contiguous()),
                                atol=0, rtol=0)
+    # opaque rows: an ulp of the CDF decides the guard, so bit for bit
+    wo = torch.from_numpy(opaque(np.random.default_rng(R + M), R, M)).to(cuda)
+    assert torch.equal(fused_sampling.sample_pdf_cuda(bins, wo, u),
+                       sampling.sample_pdf(bins, wo, u))
     # through the autograd Function: kernel forward, backward kernel, the
     # same on every run and exactly its torch transcription; near the plain
-    # backward on the draws f32 can decide
-    mask = decidable(bins, w, u)
-    grads = []
-    for _ in range(2):
-        wt = w.clone().requires_grad_(True)
-        out = fused_sampling.fused_sample_pdf(bins, wt, u)
-        torch.testing.assert_close(out, got, atol=0, rtol=0)
-        before = fused_sampling.sample_pdf_backward_cuda.launches
-        (out * mask).sum().backward()
-        assert fused_sampling.sample_pdf_backward_cuda.launches == before + 1
-        grads.append(wt.grad)
-    assert torch.equal(grads[0], grads[1])
-    assert torch.equal(grads[0], fused_sampling.sample_pdf_backward_kernel_order(
-        bins, w, u, mask)[1])
-    w2 = w.clone().requires_grad_(True)
-    (sampling.sample_pdf(bins, w2, u) * mask).sum().backward()
-    grads_close([grads[0]], [w2.grad], exact=False)
+    # backward on every draw
+    for weights in (w, wo):
+        grads = []
+        for _ in range(2):
+            wt = weights.clone().requires_grad_(True)
+            out = fused_sampling.fused_sample_pdf(bins, wt, u)
+            assert torch.equal(out, fused_sampling.sample_pdf_cuda(bins, weights, u))
+            before = fused_sampling.sample_pdf_backward_cuda.launches
+            out.sum().backward()
+            assert fused_sampling.sample_pdf_backward_cuda.launches == before + 1
+            grads.append(wt.grad)
+        assert torch.equal(grads[0], grads[1])
+        assert torch.equal(grads[0], fused_sampling.sample_pdf_backward_kernel_order(
+            bins, weights, u, torch.ones_like(u))[1])
+        w2 = weights.clone().requires_grad_(True)
+        sampling.sample_pdf(bins, w2, u).sum().backward()
+        grads_close([grads[0]], [w2.grad], exact=False)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [63, 191, 2])
+@pytest.mark.parametrize("M", [63, 191, 2, 300, 1100])
 @pytest.mark.parametrize("R,S", [(1000, 128), (37, 128), (5, 3), (37, 200)])
 def test_k2_backward_kernel(cuda, R, S, M):
     """The backward kernel through its launcher: every gradient bit for bit
     its torch transcription (sample_pdf_backward_kernel_order) run on the
     card, two launches equal, the weights' [:, 1:-1] view and a zero-stride
     draw row read in place, and against autograd through the plain
-    sample_pdf (grads_close), on dyadic weights with every draw and on
-    random ones where f32 can decide; each also peaked (98% of the weight in
-    3 adjacent bins, held by the random weights' atol, see
-    tests/test_torch_sample_pdf_backward.py). S = 200 is two of the kernel's
-    tiles of draws, the second partial."""
-    for exact, peak in ((True, False), (False, False), (True, True), (False, True)):
-        b, w, u, g = backward_case(M, R, S, exact, peak=peak)
+    sample_pdf (grads_close) on every draw, on dyadic, random and opaque
+    weights, and peaked (98% of the weight in 3 adjacent bins, held by the
+    random weights' atol, see tests/test_torch_sample_pdf_backward.py).
+    S = 200 is two of the kernel's tiles of draws, the second partial.
+    M = 300 takes a second level of the CDF's blocks, M = 1,100 a second
+    level of the row sum's windows and, in the backward, more than 48 KB of
+    shared memory a block."""
+    for exact, peak, opaque_rows in ((True, False, False), (False, False, False),
+                                     (True, True, False), (False, True, False),
+                                     (False, False, True)):
+        b, w, u, g = backward_case(M, R, S, exact, peak=peak, opaque_rows=opaque_rows)
         bins, u, g = (torch.from_numpy(a).to(cuda) for a in (b, u, g))
         full = torch.from_numpy(np.pad(w, ((0, 0), (1, 1)), constant_values=3.0)).to(cuda)
         wv = full[:, 1:-1]
@@ -314,11 +317,9 @@ def test_k2_backward_kernel(cuda, R, S, M):
         assert all(torch.equal(a, c) for a, c in zip(
             fused_sampling.sample_pdf_backward_cuda(bins, wv, ub, g, True, True),
             fused_sampling.sample_pdf_backward_cuda(bins, wv, ub.contiguous(), g, True, True)))
-        gm = g if exact else g * decidable(bins, wv, u)
         leaves = [t.clone().requires_grad_(True) for t in (bins, wv, u)]
-        ref = torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, gm)
-        grads_close(fused_sampling.sample_pdf_backward_cuda(bins, wv, u, gm, True, True), ref,
-                    exact and not peak)
+        ref = torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, g)
+        grads_close(got, ref, exact and not peak)
 
 
 @pytest.mark.cuda
