@@ -23,9 +23,9 @@ builds of two trees on one card):
           the weight bytes each launch reads from L2
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
-          exactly 0 and 1: against the plain sample_pdf (the same CDF law,
-          the JAX package's order of sums) on random and dyadic weights, and
-          bit for bit on opaque rows (a ray's weight, 1.0 or 0.999, in 5
+          exactly 0 and 1: bit for bit the plain sample_pdf (the same CDF
+          law, the JAX package's order of sums) on random and dyadic
+          weights and on opaque rows (a ray's weight, 1.0 or 0.999, in 5
           adjacent bins, where an ulp of the CDF decides the 1e-5 guard),
           with the guard's shares there; its device and wall times; one
           forward call must run one kernel. Its backward kernel at 1,024
@@ -214,12 +214,11 @@ RENDER_CHUNK = 16384
 K1_TOL = 1e-4
 K1_BF16_SHARE_SLACK, K1_BF16_MAX_RATIO, K1_BF16_MEDIAN = 0.01, 2.0, 1e-6
 # K2 against the plain sample_pdf, which builds the CDF in the kernel's
-# order (the JAX package's, fused_sampling.cdf_kernel_order): within
-# K2_TOL (atol, rtol) on random and dyadic weights, and bit for bit on opaque
-# rows (k2_opaque), where the CDF's last ulp decides the 1e-5 guard. The
-# phase prints the share of the opaque rows' empty bins whose CDF gap takes
-# the guard, and of draws that take it.
-K2_TOL = (2e-6, 1e-6)
+# order (the JAX package's, fused_sampling.cdf_kernel_order) and rounds
+# operation by operation as the kernel does: bit for bit on random, dyadic
+# and opaque rows (k2_opaque, where the CDF's last ulp decides the 1e-5
+# guard). The phase prints the share of the opaque rows' empty bins whose
+# CDF gap takes the guard, and of draws that take it.
 # K2's backward kernel exactly against its torch transcription
 # (fused_sampling.sample_pdf_backward_kernel_order); against autograd
 # through the plain sample_pdf (the same CDF, so the same intervals and
@@ -714,9 +713,8 @@ def phase_k2(gen: torch.Generator) -> dict:
     """K2 through its launcher at every shape of the main path (a train
     step's 1,024 rays, a render chunk's 16,384 with broadcast draws, and
     65,536), at the fine resampling's M=63 and the P_depth draws' M=191,
-    S=128: against the plain sample_pdf (the same CDF law) within K2_TOL on
-    random and dyadic weights, bit for bit on opaque rows, with the guard's
-    shares there. Times: the kernel's device µs (CUDA graph; on opaque rows
+    S=128: bit for bit the plain sample_pdf (the same CDF law) on random,
+    dyadic and opaque weights, with the guard's shares on the opaque ones. Times: the kernel's device µs (CUDA graph; on opaque rows
     too), the wall µs of a call of fused_sample_pdf (host included) and of
     its launcher alone, and events around back-to-back calls (which read
     the host wherever it is the slower side); the plain sample_pdf; the
@@ -730,12 +728,11 @@ def phase_k2(gen: torch.Generator) -> dict:
             got = fused_sampling.sample_pdf_cuda(bins, w, u)
             plain = sampling.sample_pdf(bins, w, u)
             err = (got - plain).abs().max().item()
-            exact = bool(torch.allclose(got, plain, atol=K2_TOL[0], rtol=K2_TOL[1]))
-            bit_equal = bool(torch.equal(got, plain))
+            exact = bool(torch.equal(got, plain))
             got_d = fused_sampling.sample_pdf_cuda(bins, dyadic, u)
             plain_d = sampling.sample_pdf(bins, dyadic, u)
             err_d = (got_d - plain_d).abs().max().item()
-            exact_d = bool(torch.allclose(got_d, plain_d, atol=K2_TOL[0], rtol=K2_TOL[1]))
+            exact_d = bool(torch.equal(got_d, plain_d))
             copies = bool(torch.equal(got, fused_sampling.sample_pdf_cuda(
                 bins, w.contiguous(), u.contiguous())))
             opaque = k2_opaque(gen, R, M)
@@ -759,8 +756,8 @@ def phase_k2(gen: torch.Generator) -> dict:
             # ceil(log2(M + 1)) compares, then 6 operations
             ops = R * (M - 1) * 5 + R * S * (math.ceil(math.log2(M + 1)) + 6)
             shapes[f"R{R}_M{M}"] = dict(
-                ok=shape_ok, u_row_stride=u.stride(0), max_abs_err=err, bit_equal=bit_equal,
-                max_abs_err_dyadic=err_d, strided_equals_copies=copies,
+                ok=shape_ok, u_row_stride=u.stride(0), max_abs_err=err, bit_equal=exact,
+                max_abs_err_dyadic=err_d, bit_equal_dyadic=exact_d, strided_equals_copies=copies,
                 bit_equal_opaque=bit_equal_o, guard_share_opaque=guard, device_us=device_us,
                 device_us_opaque=device_us_o,
                 wall_us=call_us, launcher_wall_us=launcher_us, events_us=events_us,
@@ -780,8 +777,7 @@ def phase_k2(gen: torch.Generator) -> dict:
     ops_kernel = device_ops(lambda: fused_sampling.fused_sample_pdf(bins, w, ub))
     ops_plain = device_ops(lambda: sampling.sample_pdf(bins, w, ub))
     one_kernel = len(ops_kernel) == 1
-    line("k2", S=S, tol=dict(atol=K2_TOL[0], rtol=K2_TOL[1], backward_rtol=K2_BWD_TOL[0],
-                             backward_atol_of_max=K2_BWD_TOL[1],
+    line("k2", S=S, tol=dict(backward_rtol=K2_BWD_TOL[0], backward_atol_of_max=K2_BWD_TOL[1],
                              backward_atol_of_max_opaque=K2_BWD_TOL[2]),
          device_ops_per_call=ops_kernel, plain_device_ops_per_call=len(ops_plain), **shapes,
          backward=bwd)

@@ -22,11 +22,11 @@ passes within the share's slack of 0.01, not above it; both at most
 the other mode fails either bound. Point counts around the 128-point tile
 and two tiles check the masked edge and a last block with few points;
 40,000 points (313 tiles) make the persistent blocks walk several tiles
-each. K2 2e-6/1e-6 against the plain
-lookup of the same CDF (cdf_kernel_order, the plain version's law) and on
-dyadic weights, and bit for bit on opaque rows (``opaque``), where an ulp of
-the CDF decides the 1e-5 guard; its strided and zero-stride inputs exactly
-as their contiguous copies. K2's backward kernel bit for bit against
+each. K2 bit for bit the plain
+sample_pdf (cdf_kernel_order is the plain version's CDF law) on random and
+dyadic weights and on opaque rows (``opaque``), where an ulp of the CDF
+decides the 1e-5 guard; its strided and zero-stride inputs exactly as their
+contiguous copies. K2's backward kernel bit for bit against
 sample_pdf_backward_kernel_order, the same on every launch (it adds in a
 fixed order, with no atomics), and against autograd through the plain
 sample_pdf on every draw (both decide bins and guard on one CDF) at rtol
@@ -236,17 +236,16 @@ def test_k2_matches_plain(cuda, R, S, M):
     before = fused_sampling.sample_pdf_cuda.launches
     got = fused_sampling.sample_pdf_cuda(bins, w, u)
     assert fused_sampling.sample_pdf_cuda.launches == before + 1
-    # exact: against the plain lookup of the CDF summed in the kernel's order
-    kernel_order = sampling.lookup(fused_sampling.cdf_kernel_order(w), bins, u)
-    torch.testing.assert_close(got, kernel_order, atol=2e-6, rtol=1e-6)
-    # exact: on dyadic weights every order sums alike, so the plain version too
+    # bit for bit the plain sample_pdf: the same CDF law, the same rounding
+    assert torch.equal(got, sampling.lookup(fused_sampling.cdf_kernel_order(w), bins, u))
+    # and on dyadic weights, which every order of sums builds exactly
     k = torch.randint(1, 64, (R, M - 1), generator=gen)
     k[:, -1] += 2 ** int(k.sum(-1).max()).bit_length() - k.sum(-1)
     v = (k * 2.0**-12).float().to(cuda)
     wd = v - 1e-5
     assert (wd + 1e-5 == v).all()
-    torch.testing.assert_close(fused_sampling.sample_pdf_cuda(bins, wd, u),
-                               sampling.sample_pdf(bins, wd, u), atol=2e-6, rtol=1e-6)
+    assert torch.equal(fused_sampling.sample_pdf_cuda(bins, wd, u),
+                       sampling.sample_pdf(bins, wd, u))
     # a strided weights view and a zero-stride draw row read in place
     torch.testing.assert_close(got, fused_sampling.sample_pdf_cuda(bins, w.contiguous(), u),
                                atol=0, rtol=0)
