@@ -35,7 +35,6 @@ import torch
 from scade_tpu_torch import _kernels
 from scade_tpu_torch.ops import sampling
 
-LANES = 32  # a warp: the kernel's lanes per ray
 WARPS = 4  # rays per block, as csrc/fused_sampling.cu
 TILE = 128  # draws the backward kernel sorts at a time, as csrc/fused_sampling.cu
 SMEM_LIMIT = 227 * 1024  # shared memory a block can use on Hopper
