@@ -2,7 +2,9 @@
 
 Weights get a 1e-5 floor, the CDF is prepended with 0,
 ``searchsorted(..., right=True)`` locates each uniform draw and a
-``denom < 1e-5`` guard protects the linear interpolation. The draws ``u`` are
+``denom < 1e-5`` guard protects the linear interpolation. The CDF's sums run
+in the JAX package's order (see ``ROW_WINDOW``), which K2's kernels follow
+too, so every bin and guard decision is ``scade_tpu``'s bit for bit. The draws ``u`` are
 an argument: joint, independent, deterministic and cached draws are only
 different ways of producing them (``draw_u``). The result is differentiable
 in ``bins``, ``weights`` and ``u``; SCADE's space-carving loss backprops
