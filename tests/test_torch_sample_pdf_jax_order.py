@@ -13,7 +13,8 @@ within an ulp: XLA fuses the interpolation's multiply-add). Rows:
 - peaked (98% of the weight in 3 adjacent bins), uniform, and dyadic (exact
   in any order).
 At every width the port runs (M = 31, 63, 95, 191) and a sweep of widths up
-to 257 (two levels of the cumulative sum's blocks above 256). The gradient
+to 257 (two levels of the cumulative sum's blocks above 256), 1,100 and
+1,535 (two levels of the row sum's windows above 1,024). The gradient
 of the weights, of the plain backward and of the backward kernel's torch
 transcription, lies within relative L2 1e-5 of ``jax.vjp`` on opaque rows
 with no draw masked: the decisions are the same, and only the gradients'
@@ -32,7 +33,9 @@ from scade_tpu_torch.ops import fused_sampling, sampling
 from test_torch_cuda import dyadic, opaque, peaked
 
 WIDTHS = [30, 62, 94, 190]  # M - 1 at M = 31, 63, 95, 191
-SWEEP = sorted(set(range(1, 258, 9)) | {15, 16, 17, 31, 32, 33, 255, 256, 257})
+# up to 257 (two levels of the cumulative sum's blocks above 256), then 1,100
+# and 1,535 (two levels of the row sum's windows above 1,024; M = 1,536)
+SWEEP = sorted(set(range(1, 258, 9)) | {15, 16, 17, 31, 32, 33, 255, 256, 257, 1100, 1535})
 EAGER = WIDTHS + [16, 17, 32, 33, 256, 257]  # the sweep's edges, also op by op
 KINDS = ("opaque", "opaque20", "peaked", "uniform", "dyadic")
 R, S = 256, 128
