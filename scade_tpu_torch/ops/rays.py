@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from scade_tpu_torch.ops.arith import fma
+
 
 def _dirs_from_pixels(i, j, H, intrinsic):
     """Camera-frame ray directions for pixel columns ``i`` and rows ``j``."""
@@ -33,9 +35,15 @@ def get_ray_dirs(H: int, W: int, intrinsic, c2w, coords=None) -> torch.Tensor:
     else:
         ii, jj = coords[..., 1], coords[..., 0]
     dirs = _dirs_from_pixels(ii, jj, H, intrinsic)
-    # rays_d[k] = sum_l dirs[l] * c2w[k, l], as an f32 sum of products: a
-    # matmul could run in TF32 on the card and misproject edge pixels
-    return (dirs[..., None, :] * c2w[:3, :3]).sum(dim=-1)
+    # rays_d[k] = sum_l dirs[l] * c2w[k, l], as XLA's dot on the CPU sums
+    # it: from the product of l = 0, each next product added by a fused
+    # multiply-add. Elementwise: a matmul could run in TF32 on the card and
+    # misproject edge pixels.
+    rot = c2w[:3, :3]
+    rays_d = dirs[..., None, 0] * rot[:, 0]
+    for col in (1, 2):
+        rays_d = fma(dirs[..., None, col], rot[:, col], rays_d)
+    return rays_d
 
 
 def get_rays(H: int, W: int, intrinsic, c2w, coords=None):

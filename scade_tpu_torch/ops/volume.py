@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from scade_tpu_torch.ops.arith import fma
+
 # Effectively infinite distance after the last sample.
 _LAST_DIST = 1e10
 
@@ -28,7 +30,8 @@ def perturb_z_vals(z_vals, t_rand):
     mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
     lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-    return lower + (upper - lower) * t_rand
+    # one fused multiply-add, as XLA contracts the JAX package's jitted step
+    return fma(upper - lower, t_rand, lower)
 
 
 def compute_weights(raw, z_vals, rays_d, noise=0.0):
