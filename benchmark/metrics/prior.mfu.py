@@ -1,0 +1,12 @@
+"""The prior step's share of the card's peak: three times the forward's
+convolution and linear operations, summed over the traced steps' batches,
+over the host-clock time of as many untraced steps just before the trace
+(the profiler stretches the traced window), against the TF32 rate, in %."""
+
+from harness import peaks
+
+
+def read(trace, ctx):
+    if ctx.untraced_s <= 0 or not trace.device_ops() or not ctx.work.get("model_flops"):
+        return None
+    return 100.0 * ctx.work["model_flops"] / ctx.untraced_s / peaks.TF32_FLOPS
