@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from scade_tpu_torch import _kernels
 from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
+from scade_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,7 +358,7 @@ class _FusedMLP(torch.autograd.Function):
         inputs = [t.detach().requires_grad_(need)
                   for t, need in zip([pts, dirs, *weights], ctx.needs_input_grad[2:])]
         wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), span("scade.k1.recompute"):
             out = fused_mlp_plain(inputs[2:], ctx.cfg, inputs[0], inputs[1])
             grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
         return (None, None, *[next(grads) if t.requires_grad else None for t in inputs])

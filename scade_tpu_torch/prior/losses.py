@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from scade_tpu_torch.parallel.dist import batch_ranks
+from scade_tpu_torch.utils.profiling import span
 
 DEFAULT_LOSS_MODE = ("_ranking-edge_pairwise-normal-regress-edge_msgil-normal_"
                      "meanstd-tanh_pairwise-normal-regress-plane_")
@@ -467,12 +468,14 @@ def draw_criterion(gen: torch.Generator, batch: dict, loss_mode: str) -> dict:
     ``plane`` (idx, counts)."""
     on = _active(loss_mode)
     draws = {}
-    if on["plane"]:
-        draws["plane"] = draw_pwn_planes(gen, batch["planes"])
-    if on["edge"]:
-        draws["edge"] = draw_pwn_edge(gen, batch["depth"], batch["rgb"], batch["focal_length"])
-    if on["ranking"]:
-        draws["ranking"] = draw_ranking_edge(gen, batch["depth"], batch["rgb"])
+    with span("scade.prior.draws"):
+        if on["plane"]:
+            draws["plane"] = draw_pwn_planes(gen, batch["planes"])
+        if on["edge"]:
+            draws["edge"] = draw_pwn_edge(gen, batch["depth"], batch["rgb"],
+                                          batch["focal_length"])
+        if on["ranking"]:
+            draws["ranking"] = draw_ranking_edge(gen, batch["depth"], batch["rgb"])
     return draws
 
 

@@ -80,6 +80,7 @@ from scade_tpu_torch.prior.model import (
     prior_apply,
     zero_shifts_for,
 )
+from scade_tpu_torch.utils.profiling import span
 
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
@@ -265,18 +266,20 @@ def z_from(gen: torch.Generator, d_latent: int) -> Callable[[int], torch.Tensor]
 
 
 def loss_fn(model: nn.Module, shifts, batch: dict, z: torch.Tensor, draws: dict,
-            tc: PriorTrainConfig, train: bool):
+            tc: PriorTrainConfig, train: bool, step: Optional[int] = None):
     """The forward (train or eval mode, under autocast for a bf16
     ``compute_dtype``) and the criterion in f32 on ``draws`` →
-    (mean total, loss dict, per-image totals)."""
+    (mean total, loss dict, per-image totals). ``step`` labels the spans."""
     dtype = COMPUTE_DTYPES[tc.compute_dtype]
     cast = (torch.autocast(batch["rgb"].device.type, dtype=dtype) if dtype is not None
             else contextlib.nullcontext())
-    with cast:
-        depth = prior_apply(model, shifts, batch["rgb"], z, train=train)
-    depth = depth.to(torch.promote_types(depth.dtype, torch.float32))  # f32 at least
-    loss_dict, total_raw = L.criterion(depth, batch, tc.loss_mode, draws)
-    return total_raw.mean(), loss_dict, total_raw
+    with span("scade.prior.forward", step):
+        with cast:
+            depth = prior_apply(model, shifts, batch["rgb"], z, train=train)
+        depth = depth.to(torch.promote_types(depth.dtype, torch.float32))  # f32 at least
+    with span("scade.prior.criterion", step):
+        loss_dict, total_raw = L.criterion(depth, batch, tc.loss_mode, draws)
+        return total_raw.mean(), loss_dict, total_raw
 
 
 def train_step(model: nn.Module, opt: PriorOptimizer, shifts, batch: dict, z: torch.Tensor,
@@ -290,20 +293,26 @@ def train_step(model: nn.Module, opt: PriorOptimizer, shifts, batch: dict, z: to
     the ranks; the returned losses are the global batch's on every rank."""
     model.train()
     opt.zero_grad()
-    if ranks is None:
-        total, loss_dict, _ = loss_fn(model, shifts, batch, z, draws, tc, train=True)
-        total.backward()
-        opt.step()
-        return total.detach(), {k: v.detach() for k, v in loss_dict.items()}
-    with dist.global_batch(ranks):
-        _, loss_dict, total_raw = loss_fn(model, shifts, batch, z, draws, tc, train=True)
-    n = total_raw.shape[0] * ranks.world
-    (total_raw.sum() / n).backward()
-    opt.step(ranks)
-    keys = list(loss_dict)
-    sums = torch.stack([loss_dict[k].detach() for k in keys] + [total_raw.detach().sum()])
-    ranks.sum_([sums])
-    return sums[-1] / n, dict(zip(keys, sums[:-1]))
+    step = opt.count
+    with span("scade.prior.step", step):
+        if ranks is None:
+            total, loss_dict, _ = loss_fn(model, shifts, batch, z, draws, tc, True, step)
+            with span("scade.prior.backward", step):
+                total.backward()
+            with span("scade.prior.optimizer", step):
+                opt.step()
+            return total.detach(), {k: v.detach() for k, v in loss_dict.items()}
+        with dist.global_batch(ranks):
+            _, loss_dict, total_raw = loss_fn(model, shifts, batch, z, draws, tc, True, step)
+        n = total_raw.shape[0] * ranks.world
+        with span("scade.prior.backward", step):
+            (total_raw.sum() / n).backward()
+        with span("scade.prior.optimizer", step):
+            opt.step(ranks)
+            keys = list(loss_dict)
+            sums = torch.stack([loss_dict[k].detach() for k in keys] + [total_raw.detach().sum()])
+            ranks.sum_([sums])
+        return sums[-1] / n, dict(zip(keys, sums[:-1]))
 
 
 def compute_adain_stats(model: nn.Module, batches: Iterable[dict], draw_z, mini_batch_size: int = 5,

@@ -54,6 +54,7 @@ from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.parallel import mesh
 from scade_tpu_torch.parallel.dist import Ranks
 from scade_tpu_torch.render.renderer import RayBlock, RenderConfig, SceneVars, render_rays
+from scade_tpu_torch.utils.profiling import span
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # torch.optim.Adam and optax.adam defaults
 
@@ -359,23 +360,25 @@ def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: R
     a grad is None where the loss does not reach the tensor. Under ``ranks``
     the grads are summed and the metrics averaged over the data group, so
     every rank returns the whole batch's (of a sharded tensor, its rows)."""
-    loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u, ranks)
-    wrt = state.nerf_params() + [state.scales, state.shifts]
-    grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
-    if ranks is not None:
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
-        names = list(metrics)
-        values = [metrics[k].reshape(1) for k in names]
-        if ranks.n_model == 1:
-            ranks.sum_(grads + values)
-        else:
-            sharded = [dim is not None for dim in mesh.nerf_dims(state)] + [False, False]
-            ranks.sum_([g for g, s in zip(grads, sharded) if s] + values)
-            replicated = [g for g, s in zip(grads, sharded) if not s]
-            ranks.sum_(replicated, everywhere=True)
-            for g in replicated:
-                g.div_(ranks.n_model)
-        metrics = {k: v[0] / ranks.n_data for k, v in zip(names, values)}
+    with span("scade.train.forward", state.step):
+        loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u, ranks)
+    with span("scade.train.backward", state.step):
+        wrt = state.nerf_params() + [state.scales, state.shifts]
+        grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+        if ranks is not None:
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
+            names = list(metrics)
+            values = [metrics[k].reshape(1) for k in names]
+            if ranks.n_model == 1:
+                ranks.sum_(grads + values)
+            else:
+                sharded = [dim is not None for dim in mesh.nerf_dims(state)] + [False, False]
+                ranks.sum_([g for g, s in zip(grads, sharded) if s] + values)
+                replicated = [g for g, s in zip(grads, sharded) if not s]
+                ranks.sum_(replicated, everywhere=True)
+                for g in replicated:
+                    g.div_(ranks.n_model)
+            metrics = {k: v[0] / ranks.n_data for k, v in zip(names, values)}
     return grads[:-2], grads[-2], grads[-1], metrics
 
 
@@ -411,12 +414,14 @@ def make_train_step(rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: 
     rows = None if ranks is None else ranks.block(tc.n_rand)
 
     def step_fn(state: TrainState, scene: SceneTensors, generator: torch.Generator):
-        batch = sample_ray_batch(generator, scene, H, W, n_train, tc)
-        if rows is not None:
-            batch = batch_rows(batch, rows)
-        grads, g_scales, g_shifts, metrics = compute_grads(
-            state, scene, batch, rc, tc, generator=generator, ranks=ranks
-        )
-        return apply_grads(state, grads, g_scales, g_shifts, tc, n_train, metrics)
+        with span("scade.train.step", state.step):
+            batch = sample_ray_batch(generator, scene, H, W, n_train, tc)
+            if rows is not None:
+                batch = batch_rows(batch, rows)
+            grads, g_scales, g_shifts, metrics = compute_grads(
+                state, scene, batch, rc, tc, generator=generator, ranks=ranks
+            )
+            with span("scade.train.adam", state.step):
+                return apply_grads(state, grads, g_scales, g_shifts, tc, n_train, metrics)
 
     return step_fn

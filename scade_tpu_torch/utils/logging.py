@@ -1,12 +1,8 @@
-"""Running metric means, smoothed training statistics, image grids, and a
-TensorBoard writer.
+"""Running metric means, image grids, and a TensorBoard writer.
 
 ``MeanTracker`` keeps the reference's weighted running means and print
 format (train_utils/logging.py:5-34), so a ``metrics.txt`` of the port reads
-like the JAX package's. ``SmoothedValue`` and ``TrainingStats`` are the
-reference's median-smoothed loss tracking with periodic prints and an ETA
-(lib/utils/logging.py, lib/utils/training_stats.py:19-100), as
-``scade_tpu/utils/logging.py`` has them. ``Writer`` writes every scalar to ``scalars.jsonl``
+like the JAX package's. ``Writer`` writes every scalar to ``scalars.jsonl``
 and, when ``torch.utils.tensorboard`` imports, to TensorBoard too, under the
 reference's tag names (run_scade_scannet.py:1022-1074); images go to
 TensorBoard only.
@@ -17,7 +13,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-from collections import defaultdict, deque
 
 import numpy as np
 
@@ -54,79 +49,6 @@ class MeanTracker:
         f = f or sys.stdout
         for key in self._sums:
             f.write(f"{key}: {self.get(key)}\n")
-
-
-class SmoothedValue:
-    """Median and average over a sliding window of the last ``window_size``
-    values, and the average of all values seen (the median suppresses
-    loss spikes in the printed stats)."""
-
-    def __init__(self, window_size: int = 20):
-        self._deque = deque(maxlen=window_size)
-        self._total = 0.0
-        self._count = 0
-
-    def AddValue(self, value: float):
-        self._deque.append(float(value))
-        self._total += float(value)
-        self._count += 1
-
-    def GetMedianValue(self) -> float:
-        return float(np.median(list(self._deque))) if self._deque else 0.0
-
-    def GetAverageValue(self) -> float:
-        return float(np.mean(list(self._deque))) if self._deque else 0.0
-
-    def GetGlobalAverageValue(self) -> float:
-        return self._total / max(self._count, 1)
-
-
-class TrainingStats:
-    """Median-smoothed losses, a step timer with ETA and a print (and
-    ``writer`` scalars) every ``log_period`` iterations. The step timer
-    (``profiling.StepTimer``) waits for the card where CUDA has started."""
-
-    def __init__(self, log_period: int = 20, total_iters=None, writer=None):
-        from scade_tpu_torch.utils.profiling import StepTimer
-
-        self.log_period = log_period
-        self.writer = writer
-        self.iter_timer = StepTimer(total_steps=total_iters, warmup=1)
-        self.smoothed_losses = defaultdict(lambda: SmoothedValue(log_period))
-        self.smoothed_total_loss = SmoothedValue(log_period)
-
-    def IterTic(self):
-        self.iter_timer.tic()
-
-    def IterToc(self):
-        return self.iter_timer.toc()
-
-    def UpdateIterStats(self, loss: dict):
-        for k, v in loss.items():
-            if k != "total_loss":
-                self.smoothed_losses[k].AddValue(float(v))
-        self.smoothed_total_loss.AddValue(float(loss["total_loss"]))
-
-    def GetStats(self, cur_iter: int, cur_epoch: int, lr=None) -> dict:
-        stats = {"iter": cur_iter, "epoch": cur_epoch, "time": self.iter_timer.average,
-                 "eta": self.iter_timer.eta_string(cur_iter),
-                 "total_loss": self.smoothed_total_loss.GetMedianValue()}
-        if lr is not None:
-            stats["lr"] = lr
-        for k, v in self.smoothed_losses.items():
-            stats[k] = v.GetMedianValue()
-        return stats
-
-    def LogIterStats(self, cur_iter: int, cur_epoch: int, lr=None):
-        if cur_iter % self.log_period != 0:
-            return
-        stats = self.GetStats(cur_iter, cur_epoch, lr)
-        print(" ".join(f"{k}: {v:.5f}" if isinstance(v, float) else f"{k}: {v}"
-                       for k, v in stats.items()))
-        if self.writer is not None:
-            for k, v in stats.items():
-                if isinstance(v, (int, float)) and k not in ("iter", "epoch"):
-                    self.writer.add_scalar(k, float(v), cur_iter)
 
 
 def make_image_grid(images) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Tracing, timing and numeric-debug hooks.
+"""Tracing and numeric-debug hooks.
 
 The counterpart of ``scade_tpu/utils/profiling.py`` (the reference has only a
 tic/toc Timer feeding ETA prints, lib/utils/timer.py, and a NaN sweep behind
@@ -7,31 +7,59 @@ a DEBUG flag, run_scade_scannet.py:37,747-749):
 - ``trace(logdir)``: ``torch.profiler`` around the block (the host, and the
   card where there is one), written to ``logdir/trace.json`` (Chrome trace
   format; TensorBoard and Perfetto read it);
-- ``annotate(name)``: a named range on that timeline, and an NVTX range on
-  the card;
+- ``span(name, step)``: the port's one span primitive, a named range on
+  that timeline where a profiler records and nothing otherwise;
 - ``enable_nan_debugging()``: autograd's anomaly mode, which raises at the
-  backward op that produced a NaN and names its forward;
-- ``StepTimer``: per-step wall time with a warm-up and an ETA; once the
-  process has started CUDA, each tic and toc first waits for the card, so a
-  step's time is the card's too.
+  backward op that produced a NaN and names its forward.
+
+The spans the port opens, and where:
+
+==========================  ===============================================
+``scade.train.step``        ``train/step.py``'s step, the whole of it
+``scade.train.forward``     the render and the losses (``compute_loss``)
+``scade.train.backward``    ``torch.autograd.grad`` (over ranks, the sums)
+``scade.train.adam``        both Adam updates and the step's metrics
+``scade.k1.recompute``      K1's backward: the plain network and its
+                            ``autograd.grad`` (on autograd's device thread
+                            on the card)
+``scade.prior.step``        ``prior/train.py::train_step``
+``scade.prior.forward``     ``prior_apply`` (and the depth's cast to f32)
+``scade.prior.criterion``   ``L.criterion`` and the batch's mean total
+``scade.prior.backward``    ``backward()`` through model and criterion
+``scade.prior.optimizer``   ``PriorOptimizer.step``: clip and SGD (over
+                            ranks, the losses' sum too)
+``scade.prior.draws``       ``prior/losses.py::draw_criterion``, the
+                            criterion's sampled pairs, which the trainer
+                            draws before each step
+==========================  ===============================================
+
+In a step, every kernel is launched inside a phase span on the caller's
+thread or inside one of autograd's ``evaluate_function`` ranges, but for
+the NeRF step's batch sampling, which precedes its forward; in the prior's
+loop the draws' span holds the rest. The NeRF's spans carry the state's
+step, the prior's the optimizer's update count; the draws, and the
+recache's calls of ``loss_fn`` (its forward and criterion spans), carry
+none and lie outside any step span.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Optional
 
 import torch
 
 TRACE_FILE = "trace.json"
 
+_OFF = contextlib.nullcontext()
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile everything inside the block; the trace goes to
-    ``logdir/trace.json``."""
+    ``logdir/trace.json``. Shapes are recorded, and with them each step
+    span's step number (the range's ``Concrete Inputs``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -47,74 +75,35 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region of the profiler's timeline (``record_function``), and
-    an NVTX range where a card is present."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+class _Range:
+    """``record_function``'s user range, with the step number as its
+    argument where there is one: ``record_function``'s own string argument
+    does not reach the Chrome trace, a number does."""
+
+    __slots__ = ("name", "args", "handle")
+
+    def __init__(self, name: str, args: tuple):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(self.name, *self.args)
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+        return False
+
+
+def span(name: str, step: Optional[int] = None):
+    """A named range of the profiler's timeline while a ``torch.profiler``
+    records, carrying ``step`` where given, so that the spans of one step
+    share it; otherwise a shared no-op context, for the cost of one check."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Range(name, () if step is None else (step,))
 
 
 def enable_nan_debugging(enable: bool = True) -> None:
     """Raise at the backward op that produces a NaN (autograd's anomaly mode;
     slow, for debugging only)."""
     torch.autograd.set_detect_anomaly(enable)
-
-
-class StepTimer:
-    """Running per-step timing and ETA (reference lib/utils/timer.py:1-35 and
-    TrainingStats' ETA, lib/utils/training_stats.py:77-88): the first
-    ``warmup`` steps are timed but left out of the average. Where the
-    process has started CUDA, each tic and toc waits for the card first."""
-
-    def __init__(self, total_steps: Optional[int] = None, warmup: int = 2):
-        self.total_steps = total_steps
-        self.warmup = warmup
-        self.reset()
-
-    def reset(self):
-        self._count = 0
-        self._sum = 0.0
-        self._t0 = None
-
-    @staticmethod
-    def _sync():
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-    def tic(self):
-        self._sync()
-        self._t0 = time.perf_counter()
-
-    def toc(self) -> float:
-        self._sync()
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._sum += dt
-        return dt
-
-    @property
-    def average(self) -> float:
-        n = max(self._count - self.warmup, 1)
-        return self._sum / n
-
-    def eta_seconds(self, step: int) -> Optional[float]:
-        if self.total_steps is None or self._count <= self.warmup:
-            return None
-        return (self.total_steps - step) * self.average
-
-    def eta_string(self, step: int) -> str:
-        eta = self.eta_seconds(step)
-        if eta is None:
-            return "eta --:--"
-        h, rem = divmod(int(eta), 3600)
-        m, s = divmod(rem, 60)
-        return f"eta {h:d}:{m:02d}:{s:02d}"

@@ -1,25 +1,21 @@
-"""The port's training statistics, profiling hooks and depth-completion data
-helpers against the JAX package's on the CPU: ``utils/logging.py``
-(``SmoothedValue``, ``TrainingStats``), ``utils/profiling.py``,
-``data/error_sources.py`` and ``data/scannet_dataset.py``.
+"""The port's profiling hooks and depth-completion data helpers against the
+JAX package's on the CPU: ``utils/profiling.py``, ``data/error_sources.py``
+and ``data/scannet_dataset.py``.
 
-The timers of both packages run, one after the other, on fake clocks of the
-same steps; the error sources are fed the JAX package's own ``jax.random``
-draws; the datasets read one corpus in the reference layout
+The error sources are fed the JAX package's own ``jax.random`` draws; the
+datasets read one corpus in the reference layout
 (tests/test_taskonomy_dataset.py's: JPEG rgb, 16-bit depth, COLMAP
 keypoints in SQLite) with the same numpy seeds.
 
-Tolerances: none but one. Statistics, prints, ETAs, drop masks, datasets'
-examples and the helpers' outputs are equal bit for bit; the quadratic
-noise within 1e-6 relative (XLA may fuse a·d² + b·d + c into FMAs; measured
-equal here).
+Tolerances: none but one. Drop masks, datasets' examples and the helpers'
+outputs are equal bit for bit; the quadratic noise within 1e-6 relative
+(XLA may fuse a·d² + b·d + c into FMAs; measured equal here).
 """
 
 import json
 import math
 import os
 import sqlite3
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -31,114 +27,15 @@ cv2 = pytest.importorskip("cv2")
 
 from scade_tpu.data import error_sources as jerr
 from scade_tpu.data import scannet_dataset as jsd
-from scade_tpu.utils import logging as jlog
-from scade_tpu.utils import profiling as jprof
 from scade_tpu_torch import data as pdata
 from scade_tpu_torch.data import error_sources as perr
 from scade_tpu_torch.data import scannet_dataset as psd
-from scade_tpu_torch.utils import logging as plog
 from scade_tpu_torch.utils import profiling as pprof
-
-
-class Clock:
-    """A fake ``time.perf_counter`` advancing by seeded steps."""
-
-    def __init__(self, seed=0, n=200):
-        self.t = 0.0
-        self.steps = iter(np.random.default_rng(seed).uniform(0.01, 0.5, n))
-
-    def __call__(self):
-        self.t += next(self.steps)
-        return self.t
-
-
-def test_smoothed_value_matches_jax():
-    vals = np.random.default_rng(1).normal(3.0, 2.0, 45)
-    vals[7] = 1e4  # a spike the median hides
-    j, p = jlog.SmoothedValue(20), plog.SmoothedValue(20)
-    for v in vals:
-        j.AddValue(v)
-        p.AddValue(v)
-        assert (p.GetMedianValue(), p.GetAverageValue(), p.GetGlobalAverageValue()) == \
-            (j.GetMedianValue(), j.GetAverageValue(), j.GetGlobalAverageValue())
-    assert plog.SmoothedValue().GetMedianValue() == 0.0
-
-
-def timer_trace(mod):
-    """Both packages read ``time.perf_counter``: each runs alone on a fresh
-    clock of the same steps."""
-    out = []
-    with mock.patch("time.perf_counter", Clock(2)):
-        t = mod.StepTimer(total_steps=500, warmup=2)
-        out.append(t.eta_string(0))
-        for i in range(7):
-            t.tic()
-            out.append((t.toc(), t.average, t.eta_seconds(i), t.eta_string(i)))
-    return out
-
-
-def test_step_timer_matches_jax():
-    got = timer_trace(pprof)
-    assert got == timer_trace(jprof)
-    assert got[0] == "eta --:--" and got[-1][3].startswith("eta 0:")
-
-
-@pytest.mark.parametrize("cuda_started", [True, False])
-def test_step_timer_waits_for_the_card(monkeypatch, cuda_started):
-    """Once CUDA has started, every tic and toc (and TrainingStats' IterTic
-    and IterToc through them) synchronizes first; before, none does."""
-    syncs = []
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: cuda_started)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a))
-    t = pprof.StepTimer(total_steps=4, warmup=0)
-    t.tic()
-    t.toc()
-    s = plog.TrainingStats(log_period=2, total_iters=4)
-    s.IterTic()
-    s.IterToc()
-    assert len(syncs) == (4 if cuda_started else 0)
-
-
-def stats_trace(mod, capsys):
-    rng = np.random.default_rng(4)
-    out = []
-    with mock.patch("time.perf_counter", Clock(3)):
-        s = mod.TrainingStats(log_period=4, total_iters=30)
-        for it in range(1, 13):
-            s.IterTic()
-            s.UpdateIterStats({"total_loss": float(rng.uniform(1, 5)),
-                               "ranking": float(rng.uniform(0, 1)),
-                               "msg": torch.tensor(float(rng.uniform(0, 1)))})
-            s.IterToc()
-            s.LogIterStats(it, 0, lr=1e-3)
-            out.append((s.GetStats(it, 0, lr=1e-3), capsys.readouterr().out))
-    return out
-
-
-def test_training_stats_match_jax(capsys):
-    got = stats_trace(plog, capsys)
-    assert got == stats_trace(jlog, capsys)
-    assert sum(bool(printed) for _, printed in got) == 3
-    assert "total_loss:" in got[-1][1] and "eta 0:" in got[-1][1]
-
-
-def test_training_stats_write_scalars(tmp_path):
-    w = plog.Writer(str(tmp_path))
-    s = plog.TrainingStats(log_period=2, total_iters=4, writer=w)
-    for it in range(1, 5):
-        s.IterTic()
-        s.UpdateIterStats({"total_loss": float(it), "a": 0.5})
-        s.IterToc()
-        s.LogIterStats(it, 1)
-    w.close()
-    recs = [json.loads(x) for x in open(tmp_path / "scalars.jsonl")]
-    assert {(r["tag"], r["step"]) for r in recs} >= {("total_loss", 2), ("a", 4), ("time", 4)}
 
 
 def test_trace_annotate_and_nan_debugging(tmp_path):
     with pprof.trace(str(tmp_path)):
-        with pprof.annotate("prior_step"):
+        with pprof.span("prior_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / pprof.TRACE_FILE) as f:
         events = json.load(f)["traceEvents"]
