@@ -20,7 +20,12 @@ builds of two trees on one card):
           1,048,576 and 3,145,728, each in f32 and bf16, the weights' packing
           included; in bf16 also the plain version against itself with its
           sums reordered, and both against the same function summed in f64;
-          the weight bytes each launch reads from L2
+          the weight bytes each launch reads from L2; K1's backward kernels
+          at a train step's two shapes (f32): bit-equal over two calls, held
+          to the plain f32 gradient and, where no ReLU decision is near 0,
+          to the f64 one, which a TF32-products control misses; their device
+          time beside their bound (the recompute, the input gradients and
+          the weight gradients in 3xTF32) and the plain recompute's time
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
           exactly 0 and 1: bit for bit the plain sample_pdf (the same CDF
@@ -158,6 +163,7 @@ from scade_tpu_torch.data import scene as scene_io
 from scade_tpu_torch.eval import evaluate
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
+from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
 from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.parallel import dist as par_dist
 from scade_tpu_torch.parallel import mesh as tp_mesh
@@ -213,6 +219,15 @@ RENDER_CHUNK = 16384
 # ~7e-3 (median ~1e-3), so either bound tells the modes apart.
 K1_TOL = 1e-4
 K1_BF16_SHARE_SLACK, K1_BF16_MAX_RATIO, K1_BF16_MEDIAN = 0.01, 2.0, 1e-6
+# K1's backward, each tensor's largest difference over the largest entry of
+# the f64 gradient from |g| (tests/test_torch_cuda.py::
+# test_k1_backward_is_the_plain_gradient, where the readings are): against
+# the plain f32 gradient, whose ReLU decisions it takes (K1_BWD_PLAIN_TOL);
+# and against the f64 gradient with the upstream gradient zeroed at the
+# points where a pre-activation of the f64 network lies within K1_BWD_MARGIN
+# of 0 (relative to its layer's largest there), which a TF32-products
+# control misses (K1_BWD_TOL).
+K1_BWD_PLAIN_TOL, K1_BWD_TOL, K1_BWD_MARGIN = 1e-5, 5e-5, 2.0**-13
 # K2 against the plain sample_pdf, which builds the CDF in the kernel's
 # order (the JAX package's, fused_sampling.cdf_kernel_order) and rounds
 # operation by operation as the kernel does: bit for bit on random, dyadic
@@ -405,23 +420,29 @@ def k1_tensor_core_instructions() -> dict:
 
 
 def k1_ptxas() -> dict:
-    """Registers, stack and spills of each K1 instantiation, from the build
-    log, and any warning ptxas gave (a setmaxnreg it ignored, wgmma products
-    it serialized). Raises if the log names no instantiation of the kernel."""
+    """Registers, stack and spills of each K1 instantiation (the forward's
+    and the backward's delta, fix-up and dW kernels), from the build log,
+    and any warning ptxas gave (a setmaxnreg it ignored, wgmma products it
+    serialized). Raises if the log names no instantiation of the kernel."""
     res, name, warnings = {}, None, []
     for text in (_kernels.BUILD / "fused_mlp.log").read_text().splitlines():
         m = re.search(r"fused_mlp_kernelI(13__nv_bfloat16|f)Li(\d+)E", text)
+        b = re.search(r"k1_backward_(delta|fix|dw)_kernelILi(\d+)E", text)
         if "warning" in text.lower() or "Performance Loss" in text:
             warnings.append(text.strip())
         if "Function properties for" in text and m:
             name = f"{'bf16' if m.group(1) != 'f' else 'f32'}_W{m.group(2)}"
+            res[name] = {}
+        elif "Function properties for" in text and b:
+            name = f"bwd_{b.group(1)}_W{b.group(2)}"
             res[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)):
             res[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         elif name and (m := re.search(r"Used (\d+) registers", text)):
             res[name]["registers"] = int(m.group(1))
             name = None
-    want = {f"{t}_W{w}" for t in ("bf16", "f32") for w in (64, 128, 256)}
+    want = {f"{t}_W{w}" for t in ("bf16", "f32", "bwd_delta", "bwd_fix", "bwd_dw")
+            for w in (64, 128, 256)}
     if set(res) != want or not all("registers" in r for r in res.values()):
         raise RuntimeError(f"k1_ptxas: the build log names {sorted(res)}, expected {sorted(want)}")
     res["warnings"] = warnings
@@ -568,20 +589,117 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
             res[f"{key}_{dname}"] = entry
         del pts, dirs
         torch.cuda.empty_cache()
+    for key in ("train_coarse", "train_fine"):
+        res[f"{key}_backward"] = k1_backward(model, cfg, launches[key], gen)
+        torch.cuda.empty_cache()
     line("k1", D=nc.D, W=nc.W, F=rc.embed_pos.num_freqs, mflop_per_point=flop_per_point / 1e6,
          tol=dict(f32=K1_TOL, bf16=dict(point=K1_TOL, share_slack=K1_BF16_SHARE_SLACK,
-                                        max_ratio=K1_BF16_MAX_RATIO, median=K1_BF16_MEDIAN)),
+                                        max_ratio=K1_BF16_MAX_RATIO, median=K1_BF16_MEDIAN),
+                  backward=dict(plain=K1_BWD_PLAIN_TOL, f64=K1_BWD_TOL, margin=K1_BWD_MARGIN)),
          sass=sass, geometry=geo, pack_ms=pack_ms, **res)
     bad = [k for k, r in res.items() if not r["ok"]]
     if bad:
         raise RuntimeError(f"k1: kernel disagrees with its plain version at {bad}")
     step = [res["train_coarse_f32"], res["train_fine_f32"]]  # one train step's two launches
-    return dict(max_abs_err=max(r["max_abs_err"] for k, r in res.items() if k.endswith("f32")),
+    bwd = [res["train_coarse_backward"], res["train_fine_backward"]]
+    return dict(backward=dict(ms=sum(b["kernel_ms"] for b in bwd),
+                              plain_ms=sum(b["plain_ms"] for b in bwd),
+                              bound_ms=sum(b["bound_ms"] for b in bwd),
+                              max_rel_err_vs_plain=max(b["max_rel_err_vs_plain"] for b in bwd),
+                              max_rel_err_vs_f64=max(b["max_rel_err_vs_f64"] for b in bwd)),
+                max_abs_err=max(r["max_abs_err"] for k, r in res.items() if k.endswith("f32")),
                 max_abs_err_bf16=max(r["max_abs_err"] for k, r in res.items()
                                      if k.endswith("bf16")),
                 ms=sum(s["kernel_ms"] for s in step), plain_ms=sum(s["plain_ms"] for s in step),
                 bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"],
                 fma_bound_ms=sum(s["fma_bound_ms"] for s in step))
+
+
+def k1_backward_macs(cfg) -> int:
+    """Tensor-core multiply-adds a point of K1's backward: the recompute and
+    the weight gradients each every W- and W/2-wide layer's products, the
+    input gradients those of the view layer's feature columns, the feature
+    layer and trunk layers D-1 .. 1 (the skip layer's h columns). The heads
+    run on the CUDA cores and are left out."""
+    D, W, E = cfg.D, cfg.W, 3 + 6 * cfg.num_freqs
+    trunk = sum(W * (E if l == 0 else E + W if (l - 1) in cfg.skips else W) for l in range(D))
+    layers = trunk + W * W + (W // 2) * (W + 3)
+    return 2 * layers + (W // 2) * W + W * W + (D - 1) * W * W
+
+
+def relu_near_zero(weights, cfg, pts, dirs, margin: float) -> torch.Tensor:
+    """Points where the f64 network has a ReLU pre-activation within margin
+    of 0, relative to its layer's largest |z| there."""
+    w = [t.double() for t in weights]
+    emb = positional_encoding(pts.double(), Embedder(input_dims=3, num_freqs=cfg.num_freqs,
+                                                     max_freq_log2=float(cfg.num_freqs - 1)))
+    near = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+
+    def check(z):
+        near.logical_or_((z.abs() <= margin * z.abs().amax(1, keepdim=True)).any(1))
+        return torch.relu(z)
+
+    h = emb
+    for i in range(cfg.D):
+        x = torch.cat([emb, h], -1) if i > 0 and (i - 1) in cfg.skips else h
+        h = check(torch.nn.functional.linear(x, w[2 * i], w[2 * i + 1]))
+    feature = torch.nn.functional.linear(h, w[2 * cfg.D + 2], w[2 * cfg.D + 3])
+    check(torch.nn.functional.linear(torch.cat([feature, dirs.double()], -1), w[2 * cfg.D + 4],
+                                     w[2 * cfg.D + 5]))
+    return near
+
+
+def k1_backward(model, cfg, n: int, gen: torch.Generator) -> dict:
+    """K1's backward kernels (fused_mlp_backward_cuda) at n points: two calls
+    bit-equal, held to the plain f32 gradient (K1_BWD_PLAIN_TOL) and, away
+    from ReLU decisions near 0, to the f64 one (K1_BWD_TOL), as a
+    TF32-products control is not;
+    device ms of each (one call a network, the weights' two packings
+    included) and the bound: k1_backward_macs in 3xTF32 at the TF32 rate."""
+    dev = torch.device("cuda")
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
+    g = torch.randn(n, 4, generator=gen).to(dev)
+    weights = [w.detach() for w in fused_mlp.flat_weights(model)]
+    before = fused_mlp.fused_mlp_backward_cuda.launches
+    got = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
+    again = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
+    counted = fused_mlp.fused_mlp_backward_cuda.launches - before == 2
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [w.clone().requires_grad_() for w in weights]
+
+    def plain(g=g, dt=torch.float32):
+        w = [t.detach().to(dt).requires_grad_() for t in leaves]
+        return torch.autograd.grad(fused_mlp.fused_mlp_plain(w, cfg, pts.to(dt), dirs.to(dt)), w,
+                                   g.to(dt))
+
+    def rel(a, b, g):
+        size = plain(g.abs(), torch.float64)
+        return max(((x.double() - y.double()).abs().max() / z.abs().max()).item()
+                   for x, y, z in zip(a, b, size))
+
+    vs_plain = rel(got, plain(), g)
+    near = relu_near_zero(weights, cfg, pts, dirs, K1_BWD_MARGIN)
+    g0 = g.masked_fill(near[:, None], 0.0)
+    exact = plain(g0, torch.float64)
+    vs_f64 = rel(fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g0), exact, g0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = rel(plain(g0), exact, g0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ok = (counted and bit_equal and vs_plain <= K1_BWD_PLAIN_TOL and vs_f64 <= K1_BWD_TOL
+          and control > K1_BWD_TOL)
+    del again, exact
+    reps = max(2, 655_360 // n)
+    ms = cuda_ms(lambda: fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g), reps)
+    plain_ms = cuda_ms(plain, reps)
+    return dict(points=n, ok=ok, bit_equal=bit_equal, launches_counted=counted,
+                max_rel_err_vs_plain=vs_plain, max_rel_err_vs_f64=vs_f64,
+                tf32_control_vs_f64=control, points_zeroed=near.float().mean().item(),
+                kernel_ms=ms, plain_ms=plain_ms,
+                bound_ms=3 * 2 * k1_backward_macs(cfg) * n / PEAK_TF32 * 1e3,
+                bound_by="operations")
 
 
 def k2_inputs(gen: torch.Generator, R: int, M: int, S: int = 128):
@@ -917,6 +1035,7 @@ def make_scene(seed: int) -> SceneTensors:
 
 def reset_counts() -> None:
     fused_mlp.fused_mlp_cuda.launches = 0
+    fused_mlp.fused_mlp_backward_cuda.launches = 0
     fused_sampling.sample_pdf_cuda.launches = 0
     fused_sampling.sample_pdf_backward_cuda.launches = 0
 
@@ -958,7 +1077,10 @@ def phase_train(seed: int, steps: int):
         losses.append(float(metrics["loss"]))
     launches = counts()
     finite = all(math.isfinite(x) for x in losses)
-    per_step_ok = launches == {k: n * steps for k, n in per_step().items()}
+    # K1's backward kernels run once a network a step
+    per_step_ok = (launches == {k: n * steps for k, n in per_step().items()}
+                   and fused_mlp.fused_mlp_backward_cuda.launches == 2 * steps)
+    launches["k1_bwd"] = fused_mlp.fused_mlp_backward_cuda.launches
     tail = times[-10:]
     line("train", steps=steps, n_rand=tc.n_rand, loss_first=losses[0], loss_last=losses[-1],
          finite=finite, ms_per_step_median_last10=statistics.median(tail),
@@ -3105,6 +3227,11 @@ def main() -> int:
              bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass",
              launches_train_phase=train_launches["k1"], launches_tp_phase=tp_launches["k1"],
              max_abs_err_bf16=k1["max_abs_err_bf16"], fma_bound_ms=k1["fma_bound_ms"]),
+        dict(name="fused_mlp_bwd", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
+             replaces="scade_tpu/ops/fused_mlp.py:265", launches=train_launches["k1_bwd"],
+             max_rel_err_vs_f64=k1["backward"]["max_rel_err_vs_f64"], ms=k1["backward"]["ms"],
+             plain_ms=k1["backward"]["plain_ms"], bound_ms=k1["backward"]["bound_ms"],
+             bound_by="operations", library_ms=None, check="pass"),
         dict(name="sample_pdf", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:110", launches=cli_launches["k2"],

@@ -13,9 +13,15 @@ image the products read.
 ``fused_nerf_apply`` is the entry point. For CUDA tensors it launches the
 kernel (``fused_mlp_cuda``) and raises if the launch fails; only for CPU
 tensors does it take the plain version (``fused_mlp_plain``), which is also
-the oracle the kernel is held against. The backward recomputes through the
-plain version in f32, as the JAX package's custom VJP does, so training
-gradients are those of the plain network.
+the oracle the kernel is held against. Its backward gives the gradients of
+the f32 network in either mode. On the card, where pts and dirs want no
+gradient (no train path asks for one), it runs K1's backward kernels
+(``fused_mlp_backward_cuda``): the network recomputed per tile on chip, as
+the JAX package's custom VJP recomputes, and its weight and bias gradients
+in 3xTF32, reading the weights also in a transposed packed layout
+(``pack_layout_t``), with the ReLU decisions of the plain version in f32
+where 3xTF32 may take another. Otherwise, and on the CPU, it recomputes
+through the plain version in f32 and takes ``torch.autograd.grad`` of it.
 """
 
 from __future__ import annotations
@@ -108,11 +114,13 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
 
 @dataclasses.dataclass(frozen=True)
 class Part:
-    """One matrix of the packed weight buffer: rows ``n`` of layer ``layer``'s
-    weight, input columns ``k0 .. k0 + k``, padded with zero columns to
-    ``kp``, from element ``offset`` on. A head (``staged`` False: alpha, rgb)
-    is stored row-major. A tensor-core part (``staged``) is a run of chunk
-    images, ``copies`` of each: see ``part_positions``."""
+    """One matrix of a packed weight buffer: rows ``n0 .. n0 + n`` of layer
+    ``layer``'s weight, input columns ``k0 .. k0 + k``, padded with zero
+    columns to ``kp``, from element ``offset`` on; if ``transposed``, the
+    same of the weight's transpose (its rows the inputs, its columns the
+    outputs). A head (``staged`` False: alpha, rgb) is stored row-major. A
+    tensor-core part (``staged``) is a run of chunk images, ``copies`` of
+    each: see ``part_positions``."""
 
     layer: int
     k0: int
@@ -122,6 +130,8 @@ class Part:
     offset: int
     staged: bool = False
     copies: int = 1
+    n0: int = 0
+    transposed: bool = False
 
     @property
     def size(self) -> int:
@@ -192,6 +202,35 @@ def pack_layout(cfg: FusedCfg, dtype) -> Tuple[Part, ...]:
     return tuple(parts)
 
 
+@functools.lru_cache(maxsize=None)
+def pack_layout_t(cfg: FusedCfg) -> Tuple[Part, ...]:
+    """The parts of the transposed buffer K1's backward reads (f32 only: its
+    products are 3xTF32), in its order: the view layer's feature columns,
+    the feature layer, then trunk layers D-1 down to 1 (the skip layer's h
+    columns, rows E .. E + W of its transpose). Each is W rows of the
+    transpose, K its outputs (W/2 for the view layer, else W), staged as
+    ``pack_layout``'s f32 parts are: tf32 hi and lo chunk images of depth 8,
+    16-byte aligned, one after another from element 0. The delta of a
+    layer's input is the delta of its output times this matrix: wgmma's
+    tf32 products read both operands K-major only, so the weight comes
+    transposed."""
+    D, W, E = cfg.D, cfg.W, 3 + 6 * cfg.num_freqs
+    parts: List[Part] = []
+    end = 0
+
+    def add(layer, k, n0):
+        nonlocal end
+        part = Part(layer, 0, k, k, W, end, True, copies(torch.float32), n0, True)
+        parts.append(part)
+        end += part.size
+
+    add(D + 2, W // 2, 0)
+    add(D + 1, W, 0)
+    for layer in range(D - 1, 0, -1):
+        add(layer, W, E if (layer - 1) in cfg.skips else 0)
+    return tuple(parts)
+
+
 def part_positions(p: Part, dtype) -> torch.Tensor:
     """(copies, n, kp): where each element of the part's padded matrix lies in
     the packed buffer. A head is row-major. A staged part is cut along K into
@@ -221,23 +260,25 @@ def _weight_shapes(cfg: FusedCfg) -> Tuple[Tuple[int, int], ...]:
 
 
 @functools.lru_cache(maxsize=None)
-def _pack_index(cfg: FusedCfg, dtype, device) -> torch.Tensor:
-    """For each element of the packed buffer, its index in ``_pack_source``:
+def _pack_index(cfg: FusedCfg, dtype, device, transposed: bool = False) -> torch.Tensor:
+    """For each element of the packed buffer (``pack_layout``'s, or
+    ``pack_layout_t``'s if ``transposed``), its index in ``_pack_source``:
     the weight matrices flattened and concatenated (bf16, or f32 followed by
-    their tf32 hi and lo halves), then one zero, taken where ``pack_layout``
+    their tf32 hi and lo halves), then one zero, taken where the layout
     pads."""
     shapes = _weight_shapes(cfg)
     starts = [0]
     for n, k in shapes:
         starts.append(starts[-1] + n * k)
     total = starts[-1]
-    parts = pack_layout(cfg, dtype)
+    parts = pack_layout_t(cfg) if transposed else pack_layout(cfg, dtype)
     zero = total * (3 if dtype == torch.float32 else 1)
     index = torch.full((parts[-1].offset + parts[-1].size,), zero)
     for p in parts:
         k_in = shapes[p.layer][1]
+        rows, cols = p.n0 + torch.arange(p.n)[:, None], p.k0 + torch.arange(p.k)
         src = torch.full((p.n, p.kp), -1)
-        src[:, :p.k] = starts[p.layer] + p.k0 + torch.arange(p.n)[:, None] * k_in + torch.arange(p.k)
+        src[:, :p.k] = starts[p.layer] + (cols * k_in + rows if p.transposed else rows * k_in + cols)
         pos = part_positions(p, dtype)
         for cp in range(p.copies):
             # a staged f32 part reads the hi, then the lo halves
@@ -255,25 +296,35 @@ def _pack_source(mats: Sequence[torch.Tensor], dtype) -> torch.Tensor:
     return torch.cat([flat, hi, tf32_round(flat - hi), zero])
 
 
-def pack_weights(weights: Sequence[torch.Tensor], cfg: FusedCfg, dtype) -> torch.Tensor:
+def pack_weights(weights: Sequence[torch.Tensor], cfg: FusedCfg, dtype,
+                 transposed: bool = False) -> torch.Tensor:
     """The weights of ``flat_weights`` in the kernel's packed layout: one
     contiguous 1-D buffer of ``dtype`` (bf16, or f32 for the 3xTF32 mode,
     whose staged parts hold the tf32 hi and lo halves), zero wherever
     ``pack_layout`` pads, written anew on every call by one gather. Biases are
-    not packed: the kernel reads them as they are, in f32."""
+    not packed: the kernel reads them as they are, in f32. ``transposed``:
+    ``pack_layout_t``'s buffer instead (``dtype`` f32: K1's backward)."""
     mats = [w.detach() for w in weights[0::2]]
     shapes = _weight_shapes(cfg)
     if [tuple(m.shape) for m in mats] != list(shapes):
         raise ValueError(f"pack_weights: weight shapes {[tuple(m.shape) for m in mats]}, "
                          f"expected {list(shapes)}")
     src = _pack_source(mats, dtype)
-    return src[_pack_index(cfg, dtype, src.device)]
+    return src[_pack_index(cfg, dtype, src.device, transposed)]
+
+
+def _table(parts: Sequence[Part]):
+    return (ctypes.c_int * (3 * len(parts)))(*[v for p in parts for v in (p.offset, p.n, p.kp)])
 
 
 @functools.lru_cache(maxsize=None)
 def _layout_table(cfg: FusedCfg, dtype):
-    parts = pack_layout(cfg, dtype)
-    return (ctypes.c_int * (3 * len(parts)))(*[v for p in parts for v in (p.offset, p.n, p.kp)])
+    return _table(pack_layout(cfg, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_table_t(cfg: FusedCfg):
+    return _table(pack_layout_t(cfg))
 
 
 def _check_operand(t: torch.Tensor, shape, what: str):
@@ -297,27 +348,32 @@ def kernel_geometry() -> dict:
     return dict(zip(keys, (v.value for v in vals)))
 
 
+def _check_call(what: str, weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs) -> int:
+    """Refuses what the kernels do not take; returns n."""
+    if cfg.W not in (64, 128, 256) or not 1 <= cfg.D <= 16 or not 1 <= cfg.num_freqs <= 10:
+        raise ValueError(f"{what}: D={cfg.D}, W={cfg.W}, F={cfg.num_freqs} not "
+                         "supported (D <= 16, W in 64/128/256, F <= 10)")
+    if any(s >= 31 for s in cfg.skips):
+        raise ValueError(f"{what}: skips {cfg.skips} out of range")
+    n = pts.shape[0]
+    _check_operand(pts, (n, 3), "pts")
+    _check_operand(dirs, (n, 3), "dirs")
+    if len(weights) != 2 * (cfg.D + 4):
+        raise ValueError(f"{what}: {len(weights)} weight tensors, expected {2 * (cfg.D + 4)}")
+    for i, w in enumerate(weights):
+        _check_operand(w, None, f"weights[{i}]")
+        if w.device != pts.device:
+            raise ValueError(f"weights[{i}] on {w.device}, pts on {pts.device}")
+    return n
+
+
 def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
                    compute_dtype=torch.float32):
     """Launches kernel K1 on the current stream. ``fused_mlp_cuda.launches``
     counts the launches."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_mlp_cuda: compute_dtype {compute_dtype} not supported")
-    if cfg.W not in (64, 128, 256) or not 1 <= cfg.D <= 16 or not 1 <= cfg.num_freqs <= 10:
-        raise ValueError(f"fused_mlp_cuda: D={cfg.D}, W={cfg.W}, F={cfg.num_freqs} not "
-                         "supported (D <= 16, W in 64/128/256, F <= 10)")
-    if any(s >= 31 for s in cfg.skips):
-        raise ValueError(f"fused_mlp_cuda: skips {cfg.skips} out of range")
-    n = pts.shape[0]
-    _check_operand(pts, (n, 3), "pts")
-    _check_operand(dirs, (n, 3), "dirs")
-    if len(weights) != 2 * (cfg.D + 4):
-        raise ValueError(f"fused_mlp_cuda: {len(weights)} weight tensors, "
-                         f"expected {2 * (cfg.D + 4)}")
-    for i, w in enumerate(weights):
-        _check_operand(w, None, f"weights[{i}]")
-        if w.device != pts.device:
-            raise ValueError(f"weights[{i}] on {w.device}, pts on {pts.device}")
+    n = _check_call("fused_mlp_cuda", weights, cfg, pts, dirs)
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
@@ -343,6 +399,56 @@ def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
 fused_mlp_cuda.launches = 0
 
 
+def fused_mlp_backward_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs, g):
+    """K1's backward on the current stream: from the upstream gradient ``g``
+    (N, 4), the gradient of the f32 network (3xTF32, see ``csrc/fused_mlp.cu``)
+    for each tensor of ``weights``, in their order, as views of one buffer,
+    its ReLU decisions plain f32's. Four kernels and the packing of both
+    layouts; no gradient of pts or dirs. ``fused_mlp_backward_cuda.launches``
+    counts the calls."""
+    n = _check_call("fused_mlp_backward_cuda", weights, cfg, pts, dirs)
+    _check_operand(g, (n, 4), "g")
+    if g.data_ptr() % 16:
+        raise ValueError("fused_mlp_backward_cuda: g must be 16-byte aligned (rows read as float4)")
+    sizes = [w.numel() for w in weights]
+    grad = torch.empty(sum(sizes), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        grad.zero_()
+    else:
+        lib = _kernels.load("fused_mlp")
+        skip_mask = sum(1 << s for s in cfg.skips)
+        shape = (n, cfg.D, cfg.W, cfg.num_freqs, skip_mask)
+        size = ctypes.c_longlong()
+        fn = lib.fused_mlp_backward_workspace
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        _kernels.check(fn(*shape, ctypes.byref(size)), "fused_mlp_backward_workspace")
+        workspace = torch.empty(size.value, dtype=torch.uint8, device=pts.device)
+        packed = pack_weights(weights, cfg, torch.float32)
+        packed_t = pack_weights(weights, cfg, torch.float32, transposed=True)
+        table, table_t = _layout_table(cfg, torch.float32), _layout_table_t(cfg)
+        biases = (ctypes.c_void_p * (cfg.D + 4))(*[b.data_ptr() for b in weights[1::2]])
+        fn = lib.fused_mlp_backward
+        mats = (ctypes.c_void_p * (cfg.D + 4))(*[w.data_ptr() for w in weights[0::2]])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        status = fn(
+            pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), grad.data_ptr(), grad.numel(), *shape,
+            packed.data_ptr(), table, len(table) // 3, packed_t.data_ptr(), table_t,
+            len(table_t) // 3, mats, biases, workspace.data_ptr(), size.value,
+            torch.cuda.current_stream(pts.device).cuda_stream,
+        )
+        _kernels.check(status, "fused_mlp_backward")
+    fused_mlp_backward_cuda.launches += 1
+    return [t.view_as(w) for t, w in zip(torch.split(grad, sizes), weights)]
+
+
+fused_mlp_backward_cuda.launches = 0
+
+
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, compute_dtype, pts, dirs, *weights):
@@ -355,8 +461,15 @@ class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pts, dirs, *weights = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip([pts, dirs, *weights], ctx.needs_input_grad[2:])]
+        needs = ctx.needs_input_grad[2:]
+        if pts.device.type == "cuda" and not (needs[0] or needs[1]):
+            # the kernels give every weight's gradient; the points' would
+            # need the delta of the embedding, which no train path asks for
+            with span("scade.k1.recompute"):
+                grads = fused_mlp_backward_cuda(weights, ctx.cfg, pts, dirs, g.contiguous())
+            return (None, None, None, None,
+                    *[gr if need else None for gr, need in zip(grads, needs[2:])])
+        inputs = [t.detach().requires_grad_(need) for t, need in zip([pts, dirs, *weights], needs)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad(), span("scade.k1.recompute"):
             out = fused_mlp_plain(inputs[2:], ctx.cfg, inputs[0], inputs[1])

@@ -22,7 +22,20 @@ passes within the share's slack of 0.01, not above it; both at most
 the other mode fails either bound. Point counts around the 128-point tile
 and two tiles check the masked edge and a last block with few points;
 40,000 points (313 tiles) make the persistent blocks walk several tiles
-each. K2 bit for bit the plain
+each. K1's backward kernels (``fused_mlp_backward_cuda``) at W = 64,
+128, 256 on 300, 65,536 and 196,645 points, after a forward in either mode:
+bit-equal over two calls, one counted call each and no launch of the
+forward kernel, and held to the plain f32 gradient through an f64 witness:
+a ReLU pre-activation within rounding of 0 flips its unit's gradient, so
+the plain f32 recompute itself differs from the f64 gradient by 0.6-3% of a
+tensor's largest entry at these sizes (H100). Which points flip differs
+between the two, so one tensor's distance is noise (2.4 and 11.7 times the
+plain version's seen), but the worst tensor's is not (0.97-1.01 times):
+every tensor's distance to the f64 gradient must stay within twice the
+plain version's worst plus 1e-5 of its largest entry, and within 1e-3 of
+the plain gradient at 300 points. With pts asking for
+a gradient, the backward is the plain recompute's bit for bit. K2 bit for
+bit the plain
 sample_pdf (cdf_kernel_order is the plain version's CDF law) on random and
 dyadic weights and on opaque rows (``opaque``), where an ulp of the CDF
 decides the 1e-5 guard; its strided and zero-stride inputs exactly as their
@@ -50,6 +63,7 @@ import torch
 from scade_tpu_torch import cli
 from scade_tpu_torch.models.nerf import NeRF, NeRFConfig
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
+from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
 from scade_tpu_torch.render import renderer
 
 
@@ -205,20 +219,113 @@ def test_k1_matches_plain(cuda, W, F, n, dtype, tol):
         assert not bf16_agrees(other_err, tol)
 
 
+def rel_errs(got, ref):
+    """Per tensor, the largest difference over the largest entry of ref."""
+    return [((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+            for a, b in zip(got, ref)]
+
+
+def relu_near_zero(weights, cfg, pts, dirs, margin):
+    """The points at which the f64 network has a ReLU pre-activation within
+    ``margin`` of 0, relative to the largest |z| of its layer there: where
+    sums of f32 rounding, in any order, may take either side."""
+    w = [t.double() for t in weights]
+    emb = positional_encoding(pts.double(), Embedder(input_dims=3, num_freqs=cfg.num_freqs,
+                                                     max_freq_log2=float(cfg.num_freqs - 1)))
+    near = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+
+    def check(z):
+        near.logical_or_((z.abs() <= margin * z.abs().amax(1, keepdim=True)).any(1))
+        return torch.relu(z)
+
+    h = emb
+    for i in range(cfg.D):
+        x = torch.cat([emb, h], -1) if i > 0 and (i - 1) in cfg.skips else h
+        h = check(torch.nn.functional.linear(x, w[2 * i], w[2 * i + 1]))
+    feature = torch.nn.functional.linear(h, w[2 * cfg.D + 2], w[2 * cfg.D + 3])
+    check(torch.nn.functional.linear(torch.cat([feature, dirs.double()], -1), w[2 * cfg.D + 4],
+                                     w[2 * cfg.D + 5]))
+    return near
+
+
+# K1's backward, each tensor's largest difference over the largest entry of
+# the f64 gradient from |g| (the size of its terms: a head's bias gradient
+# is a sum of terms that cancel). Against the plain f32 gradient, whose ReLU
+# decisions it takes: up to 7.8e-7 seen, where a build that keeps the
+# 3xTF32 decisions reads 4.8e-5 to 2.4e-4 from 65,536 points on. Against
+# the f64 gradient, where no decision lies within 2^-13 of 0 (g zeroed
+# elsewhere): up to 1.4e-5 seen, as plain f32 itself, where TF32 products
+# read 1.5e-3 and more (H100).
+K1_BWD_PLAIN_TOL, K1_BWD_TOL, K1_BWD_MARGIN = 1e-5, 5e-5, 2.0**-13
+
+
 @pytest.mark.cuda
-def test_k1_backward_is_the_plain_gradient(cuda):
-    gen = torch.Generator().manual_seed(1)
-    model = NeRF(NeRFConfig(D=8, W=64, input_ch=27, input_ch_views=3), generator=gen).to(cuda)
-    cfg = fused_mlp.FusedCfg(8, 64, 4, (4,))
-    pts = torch.rand(300, 3, generator=gen).to(cuda)
-    dirs = torch.nn.functional.normalize(torch.randn(300, 3, generator=gen), dim=-1).to(cuda)
-    fused_mlp.fused_nerf_apply(model, cfg, pts, dirs).square().sum().backward()
-    g_kernel = [p.grad.clone() for p in model.parameters()]
-    model.zero_grad()
-    plain = fused_mlp.fused_mlp_plain(fused_mlp.flat_weights(model), cfg, pts, dirs)
-    plain.square().sum().backward()
-    for a, p in zip(g_kernel, model.parameters()):
-        assert torch.allclose(a, p.grad, atol=1e-3 * p.grad.abs().max().item())
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [300, 65536, 196608 + 37])
+@pytest.mark.parametrize("W,F", [(64, 4), (128, 4), (256, 9)])
+def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
+    gen = torch.Generator().manual_seed(W + n)
+    model = NeRF(NeRFConfig(D=8, W=W, input_ch=3 + 6 * F, input_ch_views=3), generator=gen).to(cuda)
+    cfg = fused_mlp.FusedCfg(8, W, F, (4,))
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(cuda)
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(cuda)
+    g = torch.randn(n, 4, generator=gen).to(cuda)
+    params = fused_mlp.flat_weights(model)
+
+    def kernel_grads(g):
+        out = fused_mlp.fused_nerf_apply(model, cfg, pts, dirs, dtype)
+        forward = fused_mlp.fused_mlp_cuda.launches
+        backward = fused_mlp.fused_mlp_backward_cuda.launches
+        grads = torch.autograd.grad(out, params, g)
+        assert fused_mlp.fused_mlp_cuda.launches == forward  # no forward kernel in the backward
+        assert fused_mlp.fused_mlp_backward_cuda.launches == backward + 1
+        return grads
+
+    def plain_grads(g, dt=torch.float32):
+        w = [p.detach().to(dt).requires_grad_() for p in params]
+        return torch.autograd.grad(fused_mlp.fused_mlp_plain(w, cfg, pts.to(dt), dirs.to(dt)), w,
+                                   g.to(dt))
+
+    def errs(got, ref, g):
+        size = plain_grads(g.abs(), torch.float64)
+        return [((a.double() - b.double()).abs().max() / c.abs().max()).item()
+                for a, b, c in zip(got, ref, size)]
+
+    got = kernel_grads(g)
+    assert all(torch.equal(a, b) for a, b in zip(got, kernel_grads(g)))
+    assert max(errs(got, plain_grads(g), g)) <= K1_BWD_PLAIN_TOL
+    # the products: against f64 where the ReLU decisions are clear, which
+    # products in TF32 miss
+    g0 = g.masked_fill(relu_near_zero(params, cfg, pts, dirs, K1_BWD_MARGIN)[:, None], 0.0)
+    exact = plain_grads(g0, torch.float64)
+    assert max(errs(kernel_grads(g0), exact, g0)) <= K1_BWD_TOL
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert max(errs(plain_grads(g0), exact, g0)) > K1_BWD_TOL
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # pts asking for a gradient: the plain recompute, as autograd takes it
+    pts_g = pts.clone().requires_grad_()
+    backward = fused_mlp.fused_mlp_backward_cuda.launches
+    out = fused_mlp.fused_nerf_apply(model, cfg, pts_g, dirs, dtype)
+    via = torch.autograd.grad(out, [pts_g, *params], g)
+    assert fused_mlp.fused_mlp_backward_cuda.launches == backward
+    direct = torch.autograd.grad(fused_mlp.fused_mlp_plain(params, cfg, pts_g, dirs),
+                                 [pts_g, *params], g)
+    assert all(torch.equal(a, b) for a, b in zip(via, direct))
+
+
+@pytest.mark.cuda
+def test_k1_backward_refuses_a_misaligned_g(cuda):
+    gen = torch.Generator().manual_seed(3)
+    model = NeRF(NeRFConfig(D=2, W=64, input_ch=27, input_ch_views=3), generator=gen).to(cuda)
+    cfg = fused_mlp.FusedCfg(2, 64, 4, ())
+    pts = torch.rand(10, 3, generator=gen).to(cuda)
+    dirs = torch.nn.functional.normalize(torch.randn(10, 3, generator=gen), dim=-1).to(cuda)
+    g = torch.randn(41, generator=gen).to(cuda)[1:].view(10, 4)  # contiguous, 4 bytes off
+    weights = [w.detach() for w in fused_mlp.flat_weights(model)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
 
 
 @pytest.mark.cuda
