@@ -47,11 +47,36 @@ def compute_weights(raw, z_vals, rays_d, noise=0.0):
 
     sigma = torch.relu(raw[..., 3] + noise)
     alpha = 1.0 - torch.exp(-sigma * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-        dim=-1,
+    # 1 - alpha + 1e-10 >= 1e-10: no factor is zero
+    trans = cumprod_nonzero(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1)
     )[..., :-1]
     return alpha * trans
+
+
+class _CumprodNonzero(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] <= 1:
+            return g
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def cumprod_nonzero(x):
+    """``torch.cumprod(x, dim=-1)`` of an ``x`` with no zero entry, with the
+    same values and gradient bit for bit, but a backward that reads nothing
+    to the host: torch's asks the host whether any entry of x is zero (an
+    ``.item()``, which waits for the card) and, where none is, takes the
+    reversed cumulative sum of out * g, divided by x, which this takes
+    always."""
+    return _CumprodNonzero.apply(x)
 
 
 def raw2outputs(raw, z_vals, rays_d, noise=0.0):

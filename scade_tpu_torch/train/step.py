@@ -15,6 +15,12 @@ CPU (eps outside the sqrt, bias corrections on the incremented count, see
 their moments still advance, which ``torch.optim.Adam`` cannot express, so
 the updates are written on tensors. The step updates the state in place.
 
+The step reads nothing from the card, so the host queues step i+1 while
+the card runs step i: the image index stays on the device and every gather
+takes it as a 1-element index tensor (PyTorch reads a 0-d index to the
+host), and the stratum tables are made on the device once for each shape.
+The loop reads the metrics every ``i_print`` steps.
+
 Under data parallelism (``parallel/dist.py``) every rank draws the whole
 step's batch from the same generator and renders its contiguous block of
 rays, with the draws the whole batch would give them (``RayBlock``). Each
@@ -42,6 +48,7 @@ repro phase checks the rest of the step). With ``use_fused=False`` the plain
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -269,17 +276,28 @@ def select_pixels(generator, H: int, W: int, tc: TrainConfig, device=None):
     if tc.pixel_sampling != "stratified":
         raise ValueError(f"pixel_sampling={tc.pixel_sampling!r}")
     u = torch.rand(tc.n_rand, generator=generator, device=device)
-    # integer stratum boundaries: stratum i is [b[i], b[i+1]), disjoint and
-    # non-empty for n_rand <= H*W, so the picks are distinct by construction
-    b = np.arange(tc.n_rand + 1, dtype=np.int64) * (H * W) // tc.n_rand
-    lo = torch.as_tensor(b[:-1], device=device)
-    size = torch.as_tensor((b[1:] - b[:-1]).astype(np.float32), device=device)
+    lo, size = _strata(H, W, tc.n_rand, torch.device(device or "cpu"))
     return lo + (u * size).long()
+
+
+@functools.lru_cache(maxsize=None)
+def _strata(H: int, W: int, n_rand: int, device: torch.device):
+    """The stratified law's integer stratum boundaries, made on ``device``
+    once for each shape (a copy from host memory would wait for the card):
+    stratum i is [b[i], b[i+1]) with b = arange(n_rand + 1) * H*W // n_rand,
+    disjoint and non-empty for n_rand <= H*W, so the picks are distinct by
+    construction. Returns (b[:-1], the strata's sizes in float32); every
+    step shares them, so they are not to be written."""
+    b = torch.arange(n_rand + 1, dtype=torch.int64, device=device) * (H * W) // n_rand
+    return b[:-1], (b[1:] - b[:-1]).float()
 
 
 def sample_ray_batch(generator, scene: SceneTensors, H: int, W: int, n_train: int,
                      tc: TrainConfig) -> RayBatch:
-    """On-device batch gather from one random train image."""
+    """On-device batch gather from one random train image. The image's index
+    stays on the device: every gather by it takes it as a 1-element index
+    tensor, so the host queues the step without waiting for the card (a 0-d
+    index would be read to the host first)."""
     dev = scene.images.device
     img_i = torch.randint(0, n_train, (), generator=generator, device=dev)
     pix = select_pixels(generator, H, W, tc, device=dev)
@@ -287,9 +305,11 @@ def sample_ray_batch(generator, scene: SceneTensors, H: int, W: int, n_train: in
     cols = pix % W
     coords = torch.stack([rows, cols], dim=-1).float()
 
-    rays_o, rays_d = get_rays(H, W, scene.intrinsics[img_i], scene.poses[img_i], coords=coords)
-    target_s = scene.images[img_i, rows, cols]  # (n_rand, 3)
-    target_h = scene.hyps[img_i][:, rows, cols]  # (K, n_rand, 1)
+    at = img_i.view(1)
+    rays_o, rays_d = get_rays(H, W, _row(scene.intrinsics, at), _row(scene.poses, at),
+                              coords=coords)
+    target_s = scene.images[at, rows, cols]  # (n_rand, 3)
+    target_h = scene.hyps.transpose(0, 1)[:, at, rows, cols]  # (K, n_rand, 1)
     if tc.mask_corners:
         sc_mask = _corner_mask(rows, cols, H, W)
     elif tc.mask_edges:
@@ -297,6 +317,20 @@ def sample_ray_batch(generator, scene: SceneTensors, H: int, W: int, n_train: in
     else:
         sc_mask = None
     return RayBatch(rays_o, rays_d, target_s, target_h, sc_mask, img_i)
+
+
+def _row(t: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """Row ``at`` (a 1-element index tensor) of ``t``, the value and shape of
+    ``t[i]``, without reading the index to the host. Its gradient is the
+    upstream one in that row and zeros elsewhere, as ``t[i]``'s."""
+    return t.index_select(0, at)[0]
+
+
+def _scaled_hypotheses(state: TrainState, batch: RayBatch) -> torch.Tensor:
+    """The batch's K depth hypotheses in its image's learned depth scale and
+    shift: (K, n_rand, 1)."""
+    at = batch.img_i.reshape(1)
+    return batch.target_h * _row(state.scales, at) + _row(state.shifts, at)
 
 
 def batch_rows(batch: RayBatch, rows: slice) -> RayBatch:
@@ -330,7 +364,7 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
 
     img_loss = rgb_loss(out["rgb_map"])
     loss = img_loss
-    th = batch.target_h * state.scales[batch.img_i] + state.shifts[batch.img_i]
+    th = _scaled_hypotheses(state, batch)
     sc_loss = compute_space_carving_loss(
         out["pred_hyp"], th, is_joint=tc.is_joint, mask=batch.sc_mask, norm_p=tc.norm_p,
         threshold=tc.space_carving_threshold,

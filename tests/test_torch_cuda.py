@@ -49,9 +49,17 @@ whose sums in two orders differ by up to 1.8e-6 of the largest entry;
 grad_w = (grad_pdf - d) / sum(w') is a difference of terms that can be far
 larger than itself). A resumed CLI run
 on the card equals a straight one leaf by leaf. The renderer as in
-chip_smoke.py.
+chip_smoke.py. Three train steps at the ScanNet cell's shapes (8x256 nets,
+64 + 128 samples, 1,024 rays, K=20, 20 views at 468x624, both kernels on,
+f32) run under ``torch.cuda.set_sync_debug_mode("error")``, so with no host
+read, and leave parameters and Adam moments bit-equal to the same steps
+through the 0-d image index they replace
+(``tests/test_torch_sync_free_step.py`` keeps its expressions) and
+``torch.cumprod``, whose backward reads the host; ``cumprod_nonzero`` equals
+it in value and gradient at the step's shapes.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -63,8 +71,10 @@ import torch
 from scade_tpu_torch import cli
 from scade_tpu_torch.models.nerf import NeRF, NeRFConfig
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
+from scade_tpu_torch.ops import volume
 from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
 from scade_tpu_torch.render import renderer
+from scade_tpu_torch.train import step
 
 
 def dyadic(rng, R, M):
@@ -487,3 +497,75 @@ def test_render_rays_kernels_match_plain(cuda):
         b = renderer.render_rays(scene, plain, ro, rd, 0.1, 6.0)
     assert (a["rgb_map"] - b["rgb_map"]).abs().max().item() <= 1e-3
     assert (a["depth_map"] - b["depth_map"]).abs().max().item() <= 1e-2
+
+
+
+@pytest.mark.cuda
+def test_train_step_reads_nothing_from_the_card(cuda, monkeypatch):
+    from test_torch_sync_free_step import sample_ray_batch_0d, scaled_hypotheses_0d
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from host_syncs import H, N_TRAIN, N_VAL, W, ring_scene  # the cell's views, on the card
+
+    n = N_TRAIN + N_VAL
+    scene = ring_scene(cuda, seed=4)
+    rc = renderer.make_render_config()
+    # scales and shifts on a rate that moves them, so that steps 2 and 3 read
+    # the values step 1 wrote
+    tc = step.TrainConfig(scaleshift_lr=1e-3)
+    state = step.create_train_state(0, rc, tc, n_images=n)
+    with torch.no_grad():  # a scale and shift of their own for every view
+        g = torch.Generator(device=cuda).manual_seed(5)
+        state.scales.copy_(1.0 + 0.2 * torch.rand(n, 1, generator=g, device=cuda))
+        state.shifts.copy_(0.1 * torch.randn(n, 1, generator=g, device=cuda))
+    step_fn = step.make_train_step(rc, tc, H, W, N_TRAIN)
+
+    def three_steps(st):
+        gen = torch.Generator(device=cuda)
+        for i in range(1, 4):
+            gen.manual_seed((7 << 32) + i)
+            step_fn(st, scene, gen)
+
+    # first the step as it was, which also builds the kernels and their tables
+    with monkeypatch.context() as m:
+        m.setattr(step, "sample_ray_batch", sample_ray_batch_0d)
+        m.setattr(step, "_scaled_hypotheses", scaled_hypotheses_0d)
+        m.setattr(volume, "cumprod_nonzero", lambda x: torch.cumprod(x, dim=-1))
+        ref = copy.deepcopy(state)
+        three_steps(ref)
+    got = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fused_mlp_backward_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        three_steps(got)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_backward_cuda.launches - launches == 6  # K1's backward ran
+
+    def leaves(st):
+        return {"params": st.nerf_params() + [st.scales, st.shifts], "mu": st.opt.mu,
+                "nu": st.opt.nu, "ss_mu": st.ss_opt.mu, "ss_nu": st.ss_opt.nu}
+
+    assert got.step == ref.step == 3 and got.opt.count == ref.opt.count == 3
+    for name, ts in leaves(ref).items():
+        for i, (a, b) in enumerate(zip(ts, leaves(got)[name])):
+            assert torch.equal(a, b), (name, i)
+    assert not torch.equal(got.scales, state.scales)  # scales and shifts moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [65, 193])
+def test_cumprod_nonzero_is_torch_cumprod(cuda, S):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    x = 1.0 - torch.rand((1024, S), generator=gen, device=cuda) + 1e-10
+    x[:, :1] = 1.0
+    x[:, 1::3] = 1e-10
+    g = torch.randn((1024, S), generator=gen, device=cuda)
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out_a, out_b = torch.cumprod(a, dim=-1), volume.cumprod_nonzero(b)
+    assert torch.equal(out_a, out_b)
+    ga, = torch.autograd.grad(out_a[:, :-1], a, g[:, :-1])
+    gb, = torch.autograd.grad(out_b[:, :-1], b, g[:, :-1])
+    assert torch.equal(ga, gb)
