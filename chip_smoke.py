@@ -43,11 +43,17 @@ builds of two trees on one card):
           on every draw)
   train   the reference-default train step (64+128 samples, 8x256, N_rand
           1024, f32) on a seeded scene shaped like a SCADE ScanNet scene:
-          18 train + 2 val views at 468x624, K=20 hypotheses
+          18 train + 2 val views at 468x624, K=20 hypotheses; from the
+          second step on, the step replays its CUDA graphs; one more
+          replayed step under the profiler, whose counted launches must be
+          the kernels the card ran (2 K1, 2 K2, 1 K2 backward, 2 K1
+          backward, by name in the trace)
   split   where a train step's time goes (forward, backward, Adam), and the
           step with both kernels off (their plain versions)
-  repro   one train step twice from one state and seed, f32 and bf16: every
-          grad and updated parameter bit-equal; the ops that
+  repro   three train steps (eager, captured, replayed) twice from one
+          state and seed through the CUDA graphs and once op by op, f32 and
+          bf16: every parameter and Adam moment and the losses bit-equal;
+          the ops that
           torch.use_deterministic_algorithms warns about in the step, and
           the step's ms with that switch on and off
   check   render_rays through the kernels against the plain path, 512 rays
@@ -62,7 +68,10 @@ builds of two trees on one card):
           the .tar reload bit-equal, the resumed run's 000020.tar the
           straight run's bit for bit, the two metrics.txt agree, and the
           hypotheses load through the native library (`train`) and then from
-          its blob (`test`)
+          its blob (`test`); the step captures once a run and replays the
+          rest (19 of 20; 9 of 10 in each resumed run), and step 5, a replay
+          traced by the profiler, counts the kernels the card ran; the train
+          command's memory peak (its renders beside the graphs' pool)
   tasks   on the cli phase's scene and run: `test_opt` (its metrics those of
           `test`), `video` (2 frames of 468x276, 16 K1 + 16 K2 launches a
           frame, a file that decodes to 2 frames), then `train --input_ch_cam
@@ -74,14 +83,16 @@ builds of two trees on one card):
           with a card a rank, else gloo on the one card) for 5 steps, held to
           1 rank run twice (the two bit-equal; the first step's loss and
           gradients and the parameters' median distance within 1e-5), the
-          ranks' parameters bit-equal, then a sharded `test` against 1 rank
+          ranks' parameters bit-equal, then a sharded `test` against 1 rank;
+          no rank replays a graph (the step with ranks runs eagerly)
   tp      the mesh's model axis (parallel/mesh.py): 2 ranks as data 1 x model 2
           (torchrun, gloo on the one card), the reference defaults on the
           train phase's scene, 5 steps with K1 on (its weights gathered whole,
           2 launches a step per rank) and 1 on the column-parallel plain path
           (use_fused=False), each held to 1 rank run twice as dp holds its
           ranks; the replicated tensors bit-equal across the model ranks,
-          half of each sharded weight, bias and Adam moment on each rank
+          half of each sharded weight, bias and Adam moment on each rank; no
+          rank replays a graph
   spvcnn  the SPVCNN classifier (prior/spvcnn.py) at cr=1.0 through
           refine_focal (5 channels) and refine_shift (3 channels) on a seeded
           468x624 depth map at the input functions' 100,000-point capacity: the
@@ -1046,6 +1057,36 @@ def counts() -> dict:
             "k2_bwd": fused_sampling.sample_pdf_backward_cuda.launches}
 
 
+# the kernel each counted launcher runs once a call, by its name in a device trace
+KERNEL_OF = {"k1": "fused_mlp_kernel", "k2": "sample_pdf_kernel",
+             "k2_bwd": "sample_pdf_backward_kernel", "k1_bwd": "k1_backward_delta_kernel"}
+
+
+def all_counts() -> dict:
+    return {**counts(), "k1_bwd": fused_mlp.fused_mlp_backward_cuda.launches}
+
+
+def traced_launches(fn):
+    """``fn()`` once under torch.profiler: what it returns, how far each
+    launch counter advanced, and how many of each counter's kernel ran on
+    the card, counted by name among the trace's kernels (a replayed CUDA
+    graph's launches are counted, not run, by its launchers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = all_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    after = all_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    ran = {k: sum(bool(re.search(rf"\b{v}\b", n)) for n in names) for k, v in KERNEL_OF.items()}
+    return out, {k: after[k] - before[k] for k in after}, ran
+
+
 def per_step(k1: int = 2) -> dict:
     """A train step's launches: K1 twice (0 on the plain MLP), K2 at the
     importance and P_depth draws, K2's backward once (only the P_depth
@@ -1081,15 +1122,23 @@ def phase_train(seed: int, steps: int):
     per_step_ok = (launches == {k: n * steps for k, n in per_step().items()}
                    and fused_mlp.fused_mlp_backward_cuda.launches == 2 * steps)
     launches["k1_bwd"] = fused_mlp.fused_mlp_backward_cuda.launches
+    # one more step, a replay, under the profiler: its counted launches
+    # against the kernels the card ran
+    _, counted, ran = traced_launches(lambda: step_fn(state, scene, gen))
+    replay_ok = (counted == ran == {**per_step(), "k1_bwd": 2}
+                 and (step_fn.captures, step_fn.replays) == (1, steps))
     tail = times[-10:]
     line("train", steps=steps, n_rand=tc.n_rand, loss_first=losses[0], loss_last=losses[-1],
-         finite=finite, ms_per_step_median_last10=statistics.median(tail),
+         finite=finite, graphs=dict(captures=step_fn.captures, replays=step_fn.replays),
+         replayed_step=dict(counters=counted, device_kernels=ran), replayed_step_ok=replay_ok,
+         ms_per_step_median_last10=statistics.median(tail),
          ms_per_step_last10=tail, first_step_ms=times[0], launches=launches,
          launches_per_step_ok=per_step_ok,
          hyps_gb=scene.hyps.numel() * 4 / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if not (finite and per_step_ok):
-        raise RuntimeError("train: non-finite loss or wrong kernel launch count")
+    if not (finite and per_step_ok and replay_ok):
+        raise RuntimeError("train: non-finite loss, wrong kernel launch count, or a replay's "
+                           "counters differ from the kernels it ran")
     return state, scene, rc, tc, launches, statistics.median(tail)
 
 
@@ -1132,42 +1181,50 @@ def phase_split(state, scene, rc, tc, seed: int, steps: int = 5) -> None:
         raise RuntimeError("split: non-finite loss on the plain path")
 
 
-def repro_step(state, scene, rc, tc, seed: int):
-    """One train step, as make_train_step runs it, on a copy of ``state``
-    with a generator from ``seed``: the grads as applied, the parameters
-    after, the loss."""
+def repro_run(state, scene, rc, tc, seed: int, eager: bool = False, steps: int = 3):
+    """``steps`` train steps through make_train_step, generator reseeded each
+    step, on a copy of ``state``: through the CUDA graphs (an eager step,
+    the capture, replays) or, with ``eager``, op by op. Every parameter and
+    Adam moment after, each step's loss, and the step's captures and
+    replays."""
     st = copy.deepcopy(state)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    batch = sample_ray_batch(gen, scene, H, W, N_TRAIN, tc)
-    grads, g_scales, g_shifts, metrics = train_step.compute_grads(st, scene, batch, rc, tc,
-                                                                  generator=gen)
-    applied = [None if g is None else g.detach().clone() for g in (*grads, g_scales, g_shifts)]
-    apply_grads(st, grads, g_scales, g_shifts, tc, N_TRAIN, metrics)
-    params = [p.detach().clone() for p in st.nerf_params() + [st.scales, st.shifts]]
-    return applied, params, float(metrics["loss"])
+    step_fn = make_train_step(rc, tc, H, W, N_TRAIN)
+    run = step_fn.eager if eager else step_fn
+    gen = torch.Generator(device="cuda")
+    losses = []
+    for i in range(steps):
+        gen.manual_seed(((seed + 1) << 32) + i)
+        losses.append(float(run(st, scene, gen)["loss"]))
+    leaves = (st.nerf_params() + [st.scales, st.shifts] + st.opt.mu + st.opt.nu + st.ss_opt.mu
+              + st.ss_opt.nu)
+    return ([t.detach().clone() for t in leaves], losses,
+            dict(captures=step_fn.captures, replays=step_fn.replays))
 
 
 def phase_repro(state, scene, tc, seed: int) -> None:
-    """Is the train step reproducible on the card? In f32 and bf16, one step
-    twice from the train phase's state with generators of one seed: every
-    gradient as applied and every updated parameter compared with
-    torch.equal, the differing tensors named. Then the step under
-    torch.use_deterministic_algorithms(True, warn_only=True): the ops it
-    warns about (ops with no deterministic form) and its ms against the
-    step's without it (5 steps each, after one)."""
+    """Is the train step reproducible on the card? In f32 and bf16, three
+    steps twice through the CUDA graphs from the train phase's state with
+    generators of one seed, and once op by op: every parameter and both
+    Adams' moments (which carry the gradients as applied) compared with
+    torch.equal, the differing tensors named, and the losses. Then the step
+    under torch.use_deterministic_algorithms(True, warn_only=True), op by
+    op: the ops it warns about (ops with no deterministic form) and its ms
+    against the step's without it (5 steps each, after one)."""
     names = [f"{w}.{n}" for w, m in (("coarse", state.model_coarse), ("fine", state.model_fine))
              for n, _ in m.named_parameters()] + ["scales", "shifts"]
+    names += [f"{k}:{n}" for k in ("mu", "nu") for n in names[:-2]]
+    names += [f"ss_{k}:{n}" for k in ("mu", "nu") for n in ("scales", "shifts")]
     res = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         rc = make_render_config(compute_dtype=dt)
-        (ga, pa, la), (gb, pb, lb) = (repro_step(state, scene, rc, tc, seed) for _ in range(2))
+        a, b = (repro_run(state, scene, rc, tc, seed) for _ in range(2))
+        e = repro_run(state, scene, rc, tc, seed, eager=True)
         res[name] = dict(
-            loss_equal=la == lb,
-            grads_differ=[n for n, x, y in zip(names, ga, gb)
-                          if not (x is None and y is None) and not torch.equal(x, y)],
-            params_differ=[n for n, x, y in zip(names, pa, pb) if not torch.equal(x, y)])
+            losses_equal=a[1] == b[1] == e[1], graphs=[a[2], b[2]],
+            differ=[n for n, x, y in zip(names, a[0], b[0]) if not torch.equal(x, y)],
+            differ_from_eager=[n for n, x, y in zip(names, a[0], e[0]) if not torch.equal(x, y)])
     rc = make_render_config()
-    step_fn = make_train_step(rc, tc, H, W, N_TRAIN)
+    step_fn = make_train_step(rc, tc, H, W, N_TRAIN).eager
     st = copy.deepcopy(state)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     ms = {}
@@ -1187,12 +1244,12 @@ def phase_repro(state, scene, tc, seed: int) -> None:
                 torch.use_deterministic_algorithms(False)
             ms.setdefault("switch_on" if mode else "switch_off", []).extend(times[1:])
     warned = sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)})
-    ok = all(r["loss_equal"] and not r["grads_differ"] and not r["params_differ"]
-             for r in res.values())
+    ok = all(r["losses_equal"] and not r["differ"] and not r["differ_from_eager"]
+             and r["graphs"] == [dict(captures=1, replays=2)] * 2 for r in res.values())
     line("repro", **res, deterministic_algorithms_warnings=warned,
          ms_per_step_median={k: statistics.median(v) for k, v in ms.items()}, ok=ok)
     if not ok:
-        raise RuntimeError(f"repro: one step from one state and seed differs between runs: {res}")
+        raise RuntimeError(f"repro: three steps from one state and seed differ between runs: {res}")
 
 
 def phase_check(state, scene, rc) -> None:
@@ -1297,19 +1354,25 @@ def write_scene(root: str, seed: int) -> dict:
 class CliProbe:
     """Watches the CLI's run without changing it: the kernel launches and a
     CUDA event after every train step (no synchronize), each step's loss
-    tensor and TrainConfig, the launches and wall time of every rendered
+    tensor (a copy on the card) and TrainConfig, each step function's
+    CUDA-graph captures and replays (not the function, whose graphs' memory
+    pool would outlive its run), the launches and wall time of every rendered
     view (a video frame's render ends in copies to the host), the wall time
     of the eval path's renders (which end in copies to the host), of each
     camera-latent fit (ends in a copy to the host) and of the scene load,
     and how the hypotheses were read. With ``first_grads`` it also keeps a
     host copy of the first train step's gradients, as the step applies them
-    (under ranks: summed over the ranks)."""
+    (under ranks: summed over the ranks). With ``trace_step`` it runs that
+    step (1-based) under the profiler (``traced_launches``, which
+    synchronizes) and keeps its counted launches and the kernels the card
+    ran in ``traced``."""
 
-    def __init__(self, first_grads: bool = False):
+    def __init__(self, first_grads: bool = False, trace_step: int = 0):
+        self.trace_step, self.traced = trace_step, None
         self.step_launches, self.view_launches, self.view_s = [], [], []
         self.events, self.host_ms, self.losses, self.configs = [], [], [], []
         self.eval_s, self.eval_views, self.load_s, self.hyp_load = 0.0, 0, [], []
-        self.fit_s, self.first_grads = [], None
+        self.fit_s, self.first_grads, self.graph_counts = [], None, []
         self._patches = [
             mock.patch.object(loop, "make_train_step", self._wrap_make_train_step(
                 loop.make_train_step)),
@@ -1343,17 +1406,26 @@ class CliProbe:
         def made(*args, **kwargs):
             step_fn = make(*args, **kwargs)
             self.configs.append(args[1])  # the TrainConfig
+            graphs = dict(captures=0, replays=0)
+            self.graph_counts.append(graphs)
 
             def step(*a, **kw):
                 before, t0 = counts(), time.perf_counter()
-                metrics = step_fn(*a, **kw)
+                if len(self.step_launches) + 1 == self.trace_step:
+                    metrics, counted, ran = traced_launches(lambda: step_fn(*a, **kw))
+                    self.traced = dict(counters=counted, device_kernels=ran)
+                else:
+                    metrics = step_fn(*a, **kw)
                 self.host_ms.append((time.perf_counter() - t0) * 1e3)
+                graphs.update(captures=step_fn.captures, replays=step_fn.replays)
                 after = counts()
                 self.step_launches.append({k: after[k] - before[k] for k in after})
                 event = torch.cuda.Event(enable_timing=True)
                 event.record()
                 self.events.append(event)
-                self.losses.append(metrics["loss"])
+                # a replayed step's metrics are its graphs' buffers, which the
+                # next step overwrites
+                self.losses.append(metrics["loss"].clone())
                 return metrics
 
             return step
@@ -1406,6 +1478,10 @@ class CliProbe:
             return out
         return wrapped
 
+    def graphs(self) -> dict:
+        """The train steps' CUDA-graph captures and replays, summed."""
+        return {k: sum(g[k] for g in self.graph_counts) for k in ("captures", "replays")}
+
     def step_ms(self) -> list:
         """Device-side ms of each step after the first: between the events
         recorded after consecutive steps, so host stalls between steps count."""
@@ -1452,8 +1528,12 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
         write_s = time.perf_counter() - t0
         os.chdir(tmp)
         common = cli_common(tmp, seed)
-        with CliProbe() as train, contextlib.redirect_stdout(log):
+        # step 5 a replay, traced; the memory peak of the whole command, its
+        # i_img and final renders beside the step's graph pool
+        with CliProbe(trace_step=5) as train, contextlib.redirect_stdout(log):
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             reset_counts()
             t0 = time.perf_counter()
             state = cli.main("scannet", ["train", *common, "--num_iterations", "20",
@@ -1462,6 +1542,8 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
             train_launches = counts()
+            peak_gb = dict(allocated=torch.cuda.max_memory_allocated() / 1e9,
+                           reserved=torch.cuda.max_memory_reserved() / 1e9)
         result_dir = os.path.join("ckpt", "cli", "test_images_scene")
         train_metrics = read_metrics(os.path.join(result_dir, "metrics.txt"))
         with CliProbe() as test, contextlib.redirect_stdout(log):
@@ -1485,6 +1567,11 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
                            os.path.join("ckpt", "cli_resumed", "000020.tar"))
         resumed_ok = len(resumed.step_launches) == 20 and all(
             d == per_step() for d in resumed.step_launches)
+        graphs = dict(train=train.graphs(), resumed=resumed.graphs())
+        graphs_ok = graphs == dict(train=dict(captures=1, replays=19),
+                                   resumed=dict(captures=2, replays=18))
+        replay = {**per_step(), "k1_bwd": 2}
+        traced_ok = train.traced == dict(counters=replay, device_kernels=replay)
 
         chunks = -(-H * W // RENDER_CHUNK)
         view = per_view(chunks)
@@ -1543,7 +1630,8 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
                            per_step=train.step_launches[0], per_view=train.view_launches[0]),
              launches_per_step_ok=steps_ok, launches_per_view_ok=views_ok,
              loss_first=losses[0], loss_last=losses[-1], finite=finite, tar_bit_equal=tar_ok,
-             repro_bit_equal=repro, resumed_command_s=resume_s,
+             repro_bit_equal=repro, resumed_command_s=resume_s, graphs=graphs,
+             replayed_step_5=train.traced, train_command_peak_gb=peak_gb,
              resumed_losses_equal=[float(x) for x in resumed.losses] == losses,
              metrics_train=train_metrics, metrics_test=test_metrics, metrics_agree=agree,
              metrics_finite=finite_metrics, tb_entries_ok=tb_ok, result_files=files,
@@ -1554,6 +1642,9 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
                                      (".tar reload", tar_ok), ("metrics.txt agree", agree),
                                      ("resumed run's .tar equals the straight run's", repro),
                                      ("resumed run's launches per step", resumed_ok),
+                                     ("graphs: a capture a run, then replays", graphs_ok),
+                                     ("step 5's counted launches are the kernels it ran",
+                                      traced_ok),
                                      ("finite metrics", finite_metrics),
                                      ("i_img TB entries", tb_ok),
                                      ("native hypothesis load, then its blob", native)) if not ok]
@@ -1772,7 +1863,7 @@ def dp_worker(out_dir: str, argv: list) -> int:
     rec = dict(rank=rank, launches=counts(), step_launches=probe.step_launches,
                step_ms=probe.step_ms(), host_ms=probe.host_ms,
                losses=[float(v) for v in probe.losses], view_launches=probe.view_launches,
-               view_s=probe.view_s, hypothesis_load=probe.hyp_load)
+               view_s=probe.view_s, hypothesis_load=probe.hyp_load, graphs=probe.graphs())
     if argv[0] == "train":
         torch.save(model_params(state), os.path.join(out_dir, f"rank{rank}.pt"))
         torch.save(probe.first_grads, os.path.join(out_dir, f"rank{rank}_grads.pt"))
@@ -1829,12 +1920,13 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         os.chdir(tmp)
         flags = ["--num_iterations", str(DP_STEPS), "--i_weights", str(DP_STEPS),
                  "--i_print", "1", "--i_img", "1000000"]
-        one = {}
+        one, one_graphs = {}, []
         for name in ("dp1a", "dp1b"):
             with CliProbe(first_grads=True) as probe, contextlib.redirect_stdout(log):
                 reset_counts()
                 cli.main("scannet", ["train", *cli_common(tmp, seed, name), *flags])
                 torch.cuda.synchronize()
+            one_graphs.append(probe.graphs())
             one[name] = dict(losses=[float(v) for v in probe.losses], step_ms=probe.step_ms(),
                              launches=probe.step_launches, grads=probe.first_grads,
                              params=tar_params(os.path.join("ckpt", name, f"{DP_STEPS:06d}.tar")))
@@ -1884,6 +1976,7 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
                 and all(d == view for d in r["view_launches"])
                 for r in test_ranks),
             "sharded test metrics equal 1 rank's": metrics_agree(sharded, single_metrics),
+            "no graph replays under ranks": all(r["graphs"]["replays"] == 0 for r in ranks),
         }
         line("dp", world=world, backend=backend, steps=DP_STEPS, n_rand=1024,
              rays_per_rank=1024 // world,
@@ -1912,6 +2005,7 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
                               per_rank=[statistics.median(r["step_ms"]) for r in ranks],
                               per_rank_host=[statistics.median(r["host_ms"][1:]) for r in ranks]),
              train_command_s=dp_train_s, test_command_s=dp_test_s,
+             graphs=dict(ranks=[r["graphs"] for r in ranks], one_rank=one_graphs),
              s_per_view=dict(sharded=[statistics.median(r["view_s"]) for r in test_ranks],
                              one_rank=statistics.median(single.view_s)),
              launches=dict(train=[r["launches"] for r in ranks],
@@ -1962,7 +2056,8 @@ def tp_run(scene: SceneTensors, seed: int, fused: bool, steps: int, grid=None) -
             losses.append(float(metrics["loss"]))
     models = (("coarse", state.model_coarse), ("fine", state.model_fine))
     params = {f"{w}.{k}": v.cpu() for w, m in models for k, v in tp_mesh.gather_params(m).items()}
-    out = dict(losses=losses, ms=ms, launches=launches, grads=first[0], params=params)
+    out = dict(losses=losses, ms=ms, launches=launches, grads=first[0], params=params,
+               graphs=dict(captures=step_fn.captures, replays=step_fn.replays))
     if grid is not None:
         dims = tp_mesh.nerf_dims(state)
         names = [f"{w}.{k}" for w, m in models for k, _ in m.named_parameters()]
@@ -2072,6 +2167,8 @@ def phase_tp(seed: int, world: int = 2) -> dict:
                 (d, m) for d in range(world // TP_N_MODEL) for m in range(TP_N_MODEL)],
         "launches per step per rank": all(
             all(d == want[name] for d in r[name]["launches"]) for r in ranks for name in want),
+        "no graph replays on the grid": all(r[name]["graphs"]["replays"] == 0
+                                            for r in ranks for name in want),
         "replicated bit-equal across a data row": all(
             torch.equal(a[name]["replicated"], b[name]["replicated"])
             for a in ranks for b in ranks if a["data_index"] == b["data_index"] for name in one),
@@ -2108,6 +2205,8 @@ def phase_tp(seed: int, world: int = 2) -> dict:
              sharded_tensors_whole=r0["fused"]["sharded_whole_bytes"]),
          n_sharded_tensors=r0["fused"]["n_sharded"],
          launches=[r["fused"]["launches"] for r in ranks],
+         graphs=dict(ranks=[{name: r[name]["graphs"] for name in want} for r in ranks],
+                     one_rank={name: [x["graphs"] for x in one[name]] for name in one}),
          peak_gb_per_rank=[r["plain"]["peak_gb"] for r in ranks],
          command_s=command_s, phase_s=time.perf_counter() - t_phase, checks=checks)
     bad = [name for name, ok in checks.items() if not ok]

@@ -7,6 +7,11 @@ compiled on first use, one ``nvcc`` process per source, into
 edited source is rebuilt and an unchanged one is loaded as it is. Nothing
 here runs at import time: the CPU tests import every module of the package
 on a machine without ``nvcc``.
+
+Each launcher counts its launches in its ``launches`` attribute
+(``count_launch``). A launch captured into a CUDA graph runs only when the
+graph replays, so it goes to the capture's ``tally`` instead, and the
+caller adds that tally at each replay (``count_replay``).
 """
 
 from __future__ import annotations
@@ -17,8 +22,11 @@ import os
 import shutil
 import subprocess
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
+
+import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("_build")
@@ -30,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_tallies: List[list] = []
 
 
 def _nvcc() -> str:
@@ -98,3 +107,32 @@ def check(status: int, what: str) -> None:
     """Raises if a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def count_launch(launcher) -> None:
+    """Counts a launch of ``launcher`` in its ``launches``; under a CUDA
+    graph's capture, where nothing runs, in the innermost open ``tally``
+    (or nowhere)."""
+    if torch.cuda.is_current_stream_capturing():
+        if _tallies:
+            _tallies[-1].append(launcher)
+    else:
+        launcher.launches += 1
+
+
+@contextmanager
+def tally():
+    """Collects the launchers of the launches captured inside it, one entry
+    a launch: what a replay of the captured graphs launches."""
+    launched: list = []
+    _tallies.append(launched)
+    try:
+        yield launched
+    finally:
+        _tallies.pop()
+
+
+def count_replay(launched) -> None:
+    """Counts a replay of graphs whose ``tally`` was ``launched``."""
+    for launcher in launched:
+        launcher.launches += 1

@@ -29,7 +29,7 @@ from scade_tpu_torch.ops.metrics import compute_rmse, ssim, to8b, to16b
 from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.parallel.dist import Ranks
 from scade_tpu_torch.render.renderer import SceneVars, render_image, render_rays
-from scade_tpu_torch.train.step import AdamState, adam_update
+from scade_tpu_torch.train.step import AdamState, adam_feed, adam_update
 from scade_tpu_torch.utils.logging import MeanTracker
 from scade_tpu_torch.utils.video import write_mjpeg_avi
 
@@ -323,7 +323,7 @@ def optimize_camera_embedding(
                           near, far)
         loss = img2mse(out["rgb_map"], target[idx])
         (grad,) = torch.autograd.grad(loss, [emb])
-        adam_update([emb], [grad], opt, lr)
+        adam_update([emb], [grad], opt, adam_feed(lr, opt.count + 1, dev))
         psnr = mse2psnr(loss.detach())
         take = psnr > best_psnr  # False for a NaN psnr
         best_emb = torch.where(take, emb.detach(), best_emb)

@@ -392,7 +392,7 @@ def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
         table, len(table) // 3, biases, torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _kernels.check(status, "fused_mlp_forward")
-    fused_mlp_cuda.launches += 1
+    _kernels.count_launch(fused_mlp_cuda)
     return out
 
 
@@ -442,7 +442,7 @@ def fused_mlp_backward_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts,
             torch.cuda.current_stream(pts.device).cuda_stream,
         )
         _kernels.check(status, "fused_mlp_backward")
-    fused_mlp_backward_cuda.launches += 1
+    _kernels.count_launch(fused_mlp_backward_cuda)
     return [t.view_as(w) for t, w in zip(torch.split(grad, sizes), weights)]
 
 

@@ -111,7 +111,7 @@ def sample_pdf_cuda(bins, weights, u):
     status = _entry()(bins.data_ptr(), bins.stride(0), weights.data_ptr(), weights.stride(0),
                       u.data_ptr(), u.stride(0), out.data_ptr(), R, M, S, stream)
     _kernels.check(status, "sample_pdf_fused")
-    sample_pdf_cuda.launches += 1
+    _kernels.count_launch(sample_pdf_cuda)
     return out
 
 
@@ -145,7 +145,7 @@ def sample_pdf_backward_cuda(bins, weights, u, g, need_bins=False, need_u=False)
         0 if grad_bins is None else grad_bins.data_ptr(),
         0 if grad_u is None else grad_u.data_ptr(), R, M, S, stream)
     _kernels.check(status, "sample_pdf_backward")
-    sample_pdf_backward_cuda.launches += 1
+    _kernels.count_launch(sample_pdf_backward_cuda)
     return grad_bins, grad_w, grad_u
 
 

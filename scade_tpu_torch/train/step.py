@@ -43,18 +43,27 @@ state, scene and generator give the same grads and parameters bit for bit,
 on the card too (K2's backward kernel adds in a fixed order; chip_smoke.py's
 repro phase checks the rest of the step). With ``use_fused=False`` the plain
 ``sample_pdf``'s gathers add their backward with atomics on the card.
+
+On one card, with both kernels on and a pixel law that draws on the device
+without a host read (``capturable``), the step replays CUDA graphs
+(``TrainStep``): the host's ~400 launches a step become four graph launches
+and a few scalar writes. The graphs run the same functions as the eager
+step and give its bits; the step's host scalars (the learning rate, Adam's
+bias corrections) reach them as device tensors (``AdamFeed``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scade_tpu_torch.models.nerf import NeRF
+from scade_tpu_torch import _kernels
+from scade_tpu_torch.ops import fused_mlp
 from scade_tpu_torch.ops.arith import f32, fma
 from scade_tpu_torch.ops.losses import compute_space_carving_loss, img2mse, mse2psnr
 from scade_tpu_torch.ops.rays import get_rays
@@ -154,7 +163,39 @@ def staircase_lr(tc: TrainConfig, count: int) -> float:
     return tc.lrate * tc.decay_rate ** ((count + 1) // tc.decay_step)
 
 
-def adam_update(params, grads, state: AdamState, lr: float, apply: bool = True) -> None:
+class AdamFeed(NamedTuple):
+    """One Adam update's scalars as 0-d tensors on the parameters' device:
+    f32(-lr) in float64 (``fma``'s operand, whose product it rounds as the
+    Python float's) and the bias corrections in float32."""
+
+    neg_lr: torch.Tensor
+    bc1: torch.Tensor
+    bc2: torch.Tensor
+
+
+def adam_scalars(lr: float, count: int):
+    """(f32(-lr), bc1, bc2) of the update that takes the count to ``count``:
+    the bias corrections 1 - b^count in float32, b^count float32(b) raised
+    exactly and rounded (see ``adam_update``)."""
+    bc = [f32(1.0 - f32(np.float64(np.float32(b)) ** count)) for b in (_B1, _B2)]
+    return (f32(-lr), *bc)
+
+
+def adam_feed(lr: float, count: int, device) -> AdamFeed:
+    """``adam_scalars(lr, count)`` as an ``AdamFeed`` on ``device``."""
+    neg_lr, bc1, bc2 = adam_scalars(lr, count)
+    return AdamFeed(torch.full((), neg_lr, dtype=torch.float64, device=device),
+                    torch.full((), bc1, device=device), torch.full((), bc2, device=device))
+
+
+def write_feed(feed: AdamFeed, lr: float, count: int) -> None:
+    """``adam_scalars(lr, count)`` written into ``feed`` in place, without a
+    host wait (a captured step's feed, before its replay)."""
+    for t, v in zip(feed, adam_scalars(lr, count)):
+        t.fill_(v)
+
+
+def adam_update(params, grads, state: AdamState, feed: AdamFeed, apply: bool = True) -> None:
     """One Adam step in place, bit for bit optax's as XLA compiles the JAX
     package's jitted steps on the CPU: the bias corrections 1 - b^count in
     float32, each moment's update and the parameter's step contracted into
@@ -164,12 +205,14 @@ def adam_update(params, grads, state: AdamState, lr: float, apply: bool = True) 
     for b2, where it is one ulp off. The square root is taken in float64 and
     rounded, which is the correctly rounded float32 root (torch's CPU
     float32 root is not). The tensors are concatenated, so that a step is a
-    few launches whatever their number. ``apply=False`` advances the moments
-    and the count but leaves the parameters as they are."""
+    few launches whatever their number. ``feed``: the update's learning
+    rate and bias corrections at the incremented count (``adam_feed``), as
+    tensors on the device (CUDA divides by a host scalar as a product with
+    its reciprocal). ``apply=False`` advances the moments and the count but
+    leaves the parameters as they are."""
     state.count += 1
     if not params:
         return
-    bc = [f32(1.0 - f32(np.float64(np.float32(b)) ** state.count)) for b in (_B1, _B2)]
 
     def flat(ts):
         return torch.cat([t.reshape(-1) for t in ts])
@@ -185,11 +228,8 @@ def adam_update(params, grads, state: AdamState, lr: float, apply: bool = True) 
         write(state.mu, mu)
         write(state.nu, nu)
         if apply:
-            # divisors as tensors on the device: CUDA divides by a host
-            # scalar as a product with its reciprocal
-            bc1, bc2 = (torch.full((), x, device=g.device) for x in bc)
-            den = torch.sqrt((nu / bc2).double()).float().add_(f32(_EPS)).mul_(bc1)
-            write(params, fma(mu / den, f32(-lr), flat(params)))
+            den = torch.sqrt((nu / feed.bc2).double()).float().add_(f32(_EPS)).mul_(feed.bc1)
+            write(params, fma(mu / den, feed.neg_lr, flat(params)))
 
 
 def create_train_state(
@@ -370,8 +410,8 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
         threshold=tc.space_carving_threshold,
         mean_over_ranks=None if ranks is None else ranks.mean,
     )
-    # active after warm_start_nerf iterations; logged as zero while inactive
-    sc_active = tc.space_carving_weight > 0.0 and state.step + 1 > tc.warm_start_nerf
+    # logged as zero while inactive
+    sc_active = _sc_active(tc, state.step)
     if sc_active:
         loss = loss + tc.space_carving_weight * sc_loss
     metrics = {
@@ -388,6 +428,16 @@ def compute_loss(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: Re
     return loss, metrics
 
 
+def _sc_active(tc: TrainConfig, step: int) -> bool:
+    """Space carving joins the loss after ``warm_start_nerf`` iterations."""
+    return tc.space_carving_weight > 0.0 and step + 1 > tc.warm_start_nerf
+
+
+def _frozen(tc: TrainConfig, step: int) -> bool:
+    """Scale/shift take a zero update after ``freeze_ss`` iterations."""
+    return step + 1 >= tc.freeze_ss
+
+
 def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: RenderConfig,
                   tc: TrainConfig, generator=None, cached_u=None, ranks: Optional[Ranks] = None):
     """(grads of the NeRF params, grad of scales, grad of shifts, metrics);
@@ -397,34 +447,46 @@ def compute_grads(state: TrainState, scene: SceneTensors, batch: RayBatch, rc: R
     with span("scade.train.forward", state.step):
         loss, metrics = compute_loss(state, scene, batch, rc, tc, generator, cached_u, ranks)
     with span("scade.train.backward", state.step):
-        wrt = state.nerf_params() + [state.scales, state.shifts]
-        grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
-        if ranks is not None:
-            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
-            names = list(metrics)
-            values = [metrics[k].reshape(1) for k in names]
-            if ranks.n_model == 1:
-                ranks.sum_(grads + values)
-            else:
-                sharded = [dim is not None for dim in mesh.nerf_dims(state)] + [False, False]
-                ranks.sum_([g for g, s in zip(grads, sharded) if s] + values)
-                replicated = [g for g, s in zip(grads, sharded) if not s]
-                ranks.sum_(replicated, everywhere=True)
-                for g in replicated:
-                    g.div_(ranks.n_model)
-            metrics = {k: v[0] / ranks.n_data for k, v in zip(names, values)}
+        return _grads_of(state, loss, metrics, ranks)
+
+
+def _grads_of(state: TrainState, loss, metrics: Dict, ranks: Optional[Ranks] = None):
+    """``compute_grads``' backward: the grads of ``loss`` (summed over the
+    ranks) and the metrics (averaged over the data group)."""
+    wrt = state.nerf_params() + [state.scales, state.shifts]
+    grads = list(torch.autograd.grad(loss, wrt, allow_unused=True))
+    if ranks is not None:
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wrt)]
+        names = list(metrics)
+        values = [metrics[k].reshape(1) for k in names]
+        if ranks.n_model == 1:
+            ranks.sum_(grads + values)
+        else:
+            sharded = [dim is not None for dim in mesh.nerf_dims(state)] + [False, False]
+            ranks.sum_([g for g, s in zip(grads, sharded) if s] + values)
+            replicated = [g for g, s in zip(grads, sharded) if not s]
+            ranks.sum_(replicated, everywhere=True)
+            for g in replicated:
+                g.div_(ranks.n_model)
+        metrics = {k: v[0] / ranks.n_data for k, v in zip(names, values)}
     return grads[:-2], grads[-2], grads[-1], metrics
 
 
 def apply_grads(state: TrainState, grads, g_scales, g_shifts, tc: TrainConfig,
-                n_train: int, metrics: Dict) -> Dict:
-    """Both Adam updates, in place, and the step's remaining metrics."""
-    lr = staircase_lr(tc, state.opt.count)
-    adam_update(state.nerf_params(), grads, state.opt, lr)
-    # frozen after freeze_ss iterations: zero update, moments still advance
-    frozen = state.step + 1 >= tc.freeze_ss
+                n_train: int, metrics: Dict, feeds: Optional[Tuple[AdamFeed, AdamFeed]] = None
+                ) -> Dict:
+    """Both Adam updates, in place, and the step's remaining metrics.
+    ``feeds``: the NeRF's and scale/shift's Adam scalars (a captured
+    step's, written before each replay); by default made here from the
+    host's counts."""
+    if feeds is None:
+        device = state.scales.device
+        feeds = (adam_feed(staircase_lr(tc, state.opt.count), state.opt.count + 1, device),
+                 adam_feed(tc.scaleshift_lr, state.ss_opt.count + 1, device))
+    adam_update(state.nerf_params(), grads, state.opt, feeds[0])
+    # frozen: zero update, moments still advance
     adam_update([state.scales, state.shifts], [g_scales, g_shifts], state.ss_opt,
-                tc.scaleshift_lr, apply=not frozen)
+                feeds[1], apply=not _frozen(tc, state.step))
 
     metrics["psnr"] = mse2psnr(metrics["img_loss"])
     if "img_loss0" in metrics:
@@ -436,26 +498,162 @@ def apply_grads(state: TrainState, grads, g_scales, g_shifts, tc: TrainConfig,
     return metrics
 
 
+def capturable(rc: RenderConfig, tc: TrainConfig) -> bool:
+    """Whether the step on one card can be captured as CUDA graphs: K1 runs
+    both networks and K2 the draws (the plain MLP's positional encoding
+    copies its frequencies from the host), and the pixel law draws without
+    a host read (``choice``'s ``randperm`` does not)."""
+    nets = [c for c in (rc.nerf_coarse, rc.nerf_fine) if c is not None]
+    return (rc.use_fused and rc.fused_sampling and tc.pixel_sampling != "choice"
+            and all(fused_mlp.supports_fusion(c, rc.embed_pos, rc.embed_dirs, rc.input_ch_cam)
+                    for c in nets))
+
+
+def capture_key(state: TrainState, scene: SceneTensors, generator, tc: TrainConfig) -> tuple:
+    """What a captured step assumes besides the values it reads: the address,
+    shape, strides, type and grad flag of every state and scene tensor it
+    reads or writes, the generator its draws advance, the precision of
+    cuBLAS's products, and the step's two host decisions (space carving
+    on, scale/shift frozen). Equal keys replay the same graphs."""
+    tensors = [*state.nerf_params(), *state.opt.mu, *state.opt.nu, state.scales,
+               state.shifts, *state.ss_opt.mu, *state.ss_opt.nu,
+               *(getattr(scene, f.name) for f in dataclasses.fields(scene))]
+    return (generator, torch.backends.cuda.matmul.allow_tf32,
+            _sc_active(tc, state.step), _frozen(tc, state.step),
+            tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.requires_grad)
+                  for t in tensors))
+
+
+@dataclasses.dataclass
+class _Graphs:
+    """One key's captured step: the batch draw, the forward, the backward
+    and the Adam updates (a graph each, in one memory pool), the metrics'
+    static tensors, the Adam scalars the graphs read, and the counted
+    kernel launches the graphs hold (``_kernels.tally``)."""
+
+    key: tuple
+    batch: torch.cuda.CUDAGraph
+    forward: torch.cuda.CUDAGraph
+    backward: torch.cuda.CUDAGraph
+    adam: torch.cuda.CUDAGraph
+    metrics: Dict
+    feeds: Tuple[AdamFeed, AdamFeed]
+    launches: Tuple
+
+
+class TrainStep:
+    """The train step: ``step(state, scene, generator)`` -> metrics, with
+    ``state`` updated in place; ``eager`` is the same step launched op by
+    op. ``generator`` lives on the scene's device and drives the batch, the
+    jitter and the draws.
+
+    On one card, where ``capturable``, the step replays CUDA graphs. A call
+    runs eagerly when its ``capture_key`` is new; the next call with the same
+    key captures the step as four graphs in one memory pool, and every call
+    with that key replays them, each inside the span that holds its work
+    eagerly. A copied state, a resumed checkpoint or a crossing of
+    ``warm_start_nerf`` or ``freeze_ss`` changes the key, so no replay reads
+    a stale graph. A replay writes the Adam scalars to the device (no host
+    wait), advances the host's counters (``state.step``, both Adams'
+    counts) as the eager step does, adds the launches its graphs hold to
+    the kernels' launch counters (``_kernels.count_replay``), and counts in
+    ``replays``; a capture counts in ``captures``, and no launch.
+
+    A replay's metrics are the graphs' static tensors (with ``lr`` a host
+    float): the next step overwrites them, so a caller that keeps step i's
+    metrics past step i+1 clones them. The graphs' memory pool stays
+    reserved while the step lives (0.32 GB over the eager step's reserved
+    peak in a 20-step CLI run with its renders, on an H100): drop the step
+    to free it."""
+
+    def __init__(self, rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: int,
+                 ranks: Optional[Ranks] = None):
+        self.rc, self.tc, self.H, self.W, self.n_train, self.ranks = rc, tc, H, W, n_train, ranks
+        self.rows = None if ranks is None else ranks.block(tc.n_rand)
+        self.graphed = ranks is None and capturable(rc, tc)
+        self.captures = self.replays = 0
+        self._seen = None  # the key of the last call that ran eagerly
+        self._graphs: Optional[_Graphs] = None
+
+    def __call__(self, state: TrainState, scene: SceneTensors, generator: torch.Generator):
+        if not (self.graphed and scene.images.is_cuda):
+            return self.eager(state, scene, generator)
+        key = capture_key(state, scene, generator, self.tc)
+        if self._graphs is None or self._graphs.key != key:
+            if key != self._seen:
+                self._seen = key
+                return self.eager(state, scene, generator)
+            self._capture(key, state, scene, generator)
+        return self._replay(state)
+
+    def eager(self, state: TrainState, scene: SceneTensors, generator: torch.Generator):
+        with span("scade.train.step", state.step):
+            batch = sample_ray_batch(generator, scene, self.H, self.W, self.n_train, self.tc)
+            if self.rows is not None:
+                batch = batch_rows(batch, self.rows)
+            grads, g_scales, g_shifts, metrics = compute_grads(
+                state, scene, batch, self.rc, self.tc, generator=generator, ranks=self.ranks
+            )
+            with span("scade.train.adam", state.step):
+                return apply_grads(state, grads, g_scales, g_shifts, self.tc, self.n_train,
+                                   metrics)
+
+    def _capture(self, key, state: TrainState, scene: SceneTensors, generator) -> None:
+        """Captures the step's four phases as the eager step runs them; the
+        host's counters are left as they were, and nothing runs."""
+        self._graphs = None  # the previous key's graphs and pool go first
+        rc, tc, device = self.rc, self.tc, scene.images.device
+        feeds = (adam_feed(0.0, 1, device), adam_feed(0.0, 1, device))
+        host = (state.step, state.opt.count, state.ss_opt.count)
+        graphs = [torch.cuda.CUDAGraph() for _ in range(4)]
+        for g in graphs[:2]:  # the batch's and the render's draws
+            g.register_generator_state(generator)
+        pool = torch.cuda.graph_pool_handle()
+        try:
+            with _kernels.tally() as launches:
+                with torch.cuda.graph(graphs[0], pool=pool):
+                    batch = sample_ray_batch(generator, scene, self.H, self.W, self.n_train, tc)
+                with torch.cuda.graph(graphs[1], pool=pool):
+                    loss, metrics = compute_loss(state, scene, batch, rc, tc, generator=generator)
+                with torch.cuda.graph(graphs[2], pool=pool):
+                    grads, g_scales, g_shifts, metrics = _grads_of(state, loss, metrics)
+                del loss
+                with torch.cuda.graph(graphs[3], pool=pool):
+                    metrics = apply_grads(state, grads, g_scales, g_shifts, tc, self.n_train,
+                                          metrics, feeds=feeds)
+        finally:
+            state.step, state.opt.count, state.ss_opt.count = host
+        self._graphs = _Graphs(key, *graphs, metrics, feeds, tuple(launches))
+        self.captures += 1
+
+    def _replay(self, state: TrainState) -> Dict:
+        g, tc, step = self._graphs, self.tc, state.step
+        with span("scade.train.step", step):
+            g.batch.replay()
+            with span("scade.train.forward", step):
+                g.forward.replay()
+            with span("scade.train.backward", step):
+                g.backward.replay()
+            with span("scade.train.adam", step):
+                write_feed(g.feeds[0], staircase_lr(tc, state.opt.count), state.opt.count + 1)
+                write_feed(g.feeds[1], tc.scaleshift_lr, state.ss_opt.count + 1)
+                g.adam.replay()
+        _kernels.count_replay(g.launches)
+        state.opt.count += 1
+        state.ss_opt.count += 1
+        state.step += 1
+        self.replays += 1
+        metrics = dict(g.metrics)
+        metrics["lr"] = staircase_lr(tc, step)
+        return metrics
+
+
 def make_train_step(rc: RenderConfig, tc: TrainConfig, H: int, W: int, n_train: int,
-                    ranks: Optional[Ranks] = None):
-    """The train step: (state, scene, generator) -> metrics, with ``state``
-    updated in place. ``generator`` lives on the scene's device and drives
-    the batch, the jitter and the draws. ``ranks``: data-parallel over the
+                    ranks: Optional[Ranks] = None) -> TrainStep:
+    """The train step (``TrainStep``). ``ranks``: data-parallel over the
     process group, each rank on its block of ``tc.n_rand / world`` rays; a
     grid from ``parallel/dist.py::make_grid`` with a model axis also splits
     the sharded layers over each data row (the state from
-    ``create_train_state(..., grid=...)``)."""
-    rows = None if ranks is None else ranks.block(tc.n_rand)
-
-    def step_fn(state: TrainState, scene: SceneTensors, generator: torch.Generator):
-        with span("scade.train.step", state.step):
-            batch = sample_ray_batch(generator, scene, H, W, n_train, tc)
-            if rows is not None:
-                batch = batch_rows(batch, rows)
-            grads, g_scales, g_shifts, metrics = compute_grads(
-                state, scene, batch, rc, tc, generator=generator, ranks=ranks
-            )
-            with span("scade.train.adam", state.step):
-                return apply_grads(state, grads, g_scales, g_shifts, tc, n_train, metrics)
-
-    return step_fn
+    ``create_train_state(..., grid=...)``); with ``ranks`` the step runs
+    eagerly."""
+    return TrainStep(rc, tc, H, W, n_train, ranks)

@@ -97,7 +97,8 @@ def test_adam_update_is_jitted_optax_bit_for_bit(lr):
         g = (rng.standard_normal(4096) * 10.0 ** rng.uniform(-4, 1)).astype(np.float32)
         frozen = i % 50 == 49
         jp, js = jax_step(jp, js, jnp.asarray(g), frozen)
-        step.adam_update([p], [torch.from_numpy(g)], state, lr, apply=not frozen)
+        step.adam_update([p], [torch.from_numpy(g)], state,
+                         step.adam_feed(lr, state.count + 1, "cpu"), apply=not frozen)
         np.testing.assert_array_equal(p.numpy(), np.asarray(jp), err_msg=f"step {i}")
         np.testing.assert_array_equal(state.mu[0].numpy(), np.asarray(js[0].mu))
         np.testing.assert_array_equal(state.nu[0].numpy(), np.asarray(js[0].nu))

@@ -49,9 +49,9 @@ whose sums in two orders differ by up to 1.8e-6 of the largest entry;
 grad_w = (grad_pdf - d) / sum(w') is a difference of terms that can be far
 larger than itself). A resumed CLI run
 on the card equals a straight one leaf by leaf. The renderer as in
-chip_smoke.py. Three train steps at the ScanNet cell's shapes (8x256 nets,
-64 + 128 samples, 1,024 rays, K=20, 20 views at 468x624, both kernels on,
-f32) run under ``torch.cuda.set_sync_debug_mode("error")``, so with no host
+chip_smoke.py. Three eager train steps at the ScanNet cell's shapes (8x256
+nets, 64 + 128 samples, 1,024 rays, K=20, 20 views at 468x624, both kernels
+on, f32) run under ``torch.cuda.set_sync_debug_mode("error")``, so with no host
 read, and leave parameters and Adam moments bit-equal to the same steps
 through the 0-d image index they replace
 (``tests/test_torch_sync_free_step.py`` keeps its expressions) and
@@ -518,7 +518,9 @@ def test_train_step_reads_nothing_from_the_card(cuda, monkeypatch):
         g = torch.Generator(device=cuda).manual_seed(5)
         state.scales.copy_(1.0 + 0.2 * torch.rand(n, 1, generator=g, device=cuda))
         state.shifts.copy_(0.1 * torch.randn(n, 1, generator=g, device=cuda))
-    step_fn = step.make_train_step(rc, tc, H, W, N_TRAIN)
+    # the step launched op by op, which a capture needs free of host reads
+    # (tests/test_torch_step_graph.py runs the replays under the same mode)
+    step_fn = step.make_train_step(rc, tc, H, W, N_TRAIN).eager
 
     def three_steps(st):
         gen = torch.Generator(device=cuda)

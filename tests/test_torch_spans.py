@@ -9,7 +9,8 @@ inside the step span; every host op of a step outside its phase spans is
 the NeRF's batch sampling, before the forward, or a ``detach``, which
 launches nothing. On the card (tests marked ``cuda``), at least 98% of a
 traced step's device time is launched inside a phase span or one of
-autograd's ``evaluate_function`` ranges. The file imports neither JAX nor
+autograd's ``evaluate_function`` ranges, the NeRF's step op by op and
+replayed from its CUDA graphs alike. The file imports neither JAX nor
 scade_tpu, so the card tests run with
 
     python -m pytest --noconftest -m cuda tests/test_torch_spans.py
@@ -91,8 +92,10 @@ def nerf_scene(device, h=H, w=W, n_train=N_TRAIN, k=K, seed=0):
                                      for name, v in d.items()})
 
 
-def nerf_steps(n, device="cpu", fused=True, rc_args=SMALL, n_rand=32, scene_args=None):
-    """A closure running ``n`` train steps of a fresh tiny state."""
+def nerf_steps(n, device="cpu", fused=True, rc_args=SMALL, n_rand=32, scene_args=None,
+               eager=False):
+    """A closure running ``n`` train steps of a fresh tiny state (with
+    ``eager``, op by op where the step would replay CUDA graphs)."""
     rc = make_render_config(**rc_args, device=device, use_fused=fused, fused_sampling=fused)
     tc = nerf_step.TrainConfig(n_rand=n_rand)
     scene = nerf_scene(device, **(scene_args or {}))
@@ -100,10 +103,11 @@ def nerf_steps(n, device="cpu", fused=True, rc_args=SMALL, n_rand=32, scene_args
     fn = nerf_step.make_train_step(rc, tc, scene.images.shape[1], scene.images.shape[2],
                                    scene.hyps.shape[0])
     gen = torch.Generator(device=device).manual_seed(3)
+    call = fn.eager if eager else fn
 
     def run(k=n):
         for _ in range(k):
-            fn(state, scene, gen)
+            call(state, scene, gen)
 
     return run
 
@@ -298,17 +302,20 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["nerf", "prior"])
+@pytest.mark.parametrize("kind", ["nerf", "prior", "nerf_replayed"])
 def test_phase_spans_cover_the_device_time(cuda, tmp_path, kind):
     """One traced step after two warm ones: the NeRF at the published widths
     (8x256, multires 9, 64 + 128 samples, 1,024 rays) on a 64x64 scene with
-    K=20, and the tiny prior at B=2 and 64x64 with its draws. At least 98%
-    of the device time is launched inside a phase span, the draws' span or
-    an ``evaluate_function`` range; in the NeRF, K1's recompute launches
-    kernels on autograd's device thread inside its span."""
-    if kind == "nerf":
+    K=20, op by op and replayed from its CUDA graphs, and the tiny prior at
+    B=2 and 64x64 with its draws. At least 98% of the device time is
+    launched inside a phase span, the draws' span or an
+    ``evaluate_function`` range; in the eager NeRF, K1's recompute launches
+    kernels on autograd's device thread inside its span; a replay launches
+    its graphs inside the phase spans and opens neither K1's span nor
+    autograd's ranges."""
+    if kind.startswith("nerf"):
         run = nerf_steps(3, "cuda", rc_args=dict(multires=9, multires_views=0), n_rand=1024,
-                         scene_args=dict(h=64, w=64, n_train=4, k=20))
+                         scene_args=dict(h=64, w=64, n_train=4, k=20), eager=kind == "nerf")
     else:
         run = prior_steps(3, "cuda", S=64)
     run(2)
@@ -317,12 +324,14 @@ def test_phase_spans_cover_the_device_time(cuda, tmp_path, kind):
         run(1)
         torch.cuda.synchronize()
     ev = events_of(tmp_path)
-    share, k1_ms = phase_coverage(ev, kind)
+    share, k1_ms = phase_coverage(ev, kind[:4] if kind.startswith("nerf") else kind)
     print(f"{kind}: {100 * share:.2f}% of the device time inside phase spans "
           f"or evaluate_function ranges; K1 recompute {k1_ms:.3f} ms")
     assert share >= 0.98
+    recompute = named(ev, "scade.k1.recompute")
     if kind == "nerf":
         [s] = named(ev, STEP[kind])
-        recompute = named(ev, "scade.k1.recompute")
         assert len(recompute) == 2 and all(r["tid"] != s["tid"] for r in recompute)
         assert k1_ms > 0
+    elif kind == "nerf_replayed":
+        assert recompute == [] and not any(e["name"].startswith(BACKWARD) for e in ev)

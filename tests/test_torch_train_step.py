@@ -205,7 +205,8 @@ def test_adam_update_matches_optax():
         g = rng.normal(size=(5, 7)).astype(np.float32) * 10.0 ** (i - 2)
         upd, jopt = opt.update(jnp.asarray(g), jopt, jp)
         jp = optax.apply_updates(jp, upd)
-        step.adam_update([p], [torch.from_numpy(g)], state, step.staircase_lr(tc, state.count))
+        step.adam_update([p], [torch.from_numpy(g)], state,
+                         step.adam_feed(step.staircase_lr(tc, state.count), state.count + 1, "cpu"))
         np.testing.assert_allclose(p.numpy(), np.asarray(jp), atol=1e-7, rtol=1e-6)
         np.testing.assert_allclose(state.nu[0].numpy(), np.asarray(jopt[0].nu), rtol=1e-6)
     assert [step.staircase_lr(tc, c) for c in range(4)] == pytest.approx(

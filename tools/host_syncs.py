@@ -4,7 +4,10 @@ Runs ``train/step.py``'s step at the ScanNet cell's shapes (8x256 nets,
 64 + 128 samples, 1,024 stratified rays, K=20, 18 + 2 views at 468x624, both
 kernels on, f32) on the card, as ``train/loop.py`` drives it (a generator
 reseeded each step), on a scene of random views made on the card, and
-reports:
+reports under ``replayed`` the step as it runs (its CUDA graphs replayed,
+``TrainStep``; the first three steps, which build the kernels and capture,
+come before any measurement) and under ``eager`` the same step op by op
+(``TrainStep.eager``):
 
 - ``syncs``: every host-device synchronization of ``--steps`` steps, from
   ``torch.cuda.set_sync_debug_mode("warn")``, by call site (the innermost
@@ -24,7 +27,9 @@ reports:
   synchronize to a synchronize, with the process's CPU time a step and the
   wall time of each call (a call that finds the launch queue full waits
   for the card; one that does not takes the host's time);
-- ``launches``: the device operations of one step (``torch.profiler``).
+- ``launches``: the device operations of one step (``torch.profiler``);
+
+and under ``graphs`` the step's captures and replays.
 
 Usage, from a checkout's root on a machine with a card:
 
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import os
 import statistics
@@ -91,37 +97,9 @@ def site(stack) -> dict:
             "innermost": f"{stack[-1].filename}:{stack[-1].lineno}"}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--loop", type=int, default=200)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "host_syncs.json"))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("host_syncs: needs a CUDA card")
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    scene = ring_scene(dev, args.seed)
-    rc = make_render_config()
-    tc = S.TrainConfig()
-    state = S.create_train_state(args.seed, rc, tc, n_images=N_TRAIN + N_VAL)
-    step_fn = S.make_train_step(rc, tc, H, W, N_TRAIN)
-    gen = torch.Generator(device=dev)
-    i = 0
-
-    def one():
-        nonlocal i
-        i += 1
-        gen.manual_seed(((args.seed + 1) << 32) + i)
-        return step_fn(state, scene, gen)
-
-    for _ in range(3):  # builds the kernels and every cached table
-        one()
-    torch.cuda.synchronize()
-
+def measure(one, args) -> dict:
+    """The syncs, host time, burst, closed loop and device operations of the
+    step ``one`` calls (see the module's docstring)."""
     calls = []
 
     def record(message, category, filename, lineno, file=None, line=None):
@@ -186,10 +164,8 @@ def main() -> int:
         torch.cuda.synchronize()
     launches = sum(e.count for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-
-    report = {
-        "device": torch.cuda.get_device_name(0), "steps": args.steps, "syncs": syncs,
-        "syncs_per_step": len(calls) / args.steps,
+    return {
+        "syncs": syncs, "syncs_per_step": len(calls) / args.steps,
         "host_ms": {"wall_median": statistics.median(wall), "wall": wall,
                     "process_cpu_mean": cpu * 1e3 / args.reps,
                     "wall_median_card_idle": statistics.median(idle)},
@@ -198,6 +174,43 @@ def main() -> int:
         "loop_call_ms": dict(zip(("p10", "median", "p90"),
                                  np.percentile(calls_ms, [10, 50, 90]).tolist())),
     }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--loop", type=int, default=200)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "host_syncs.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("host_syncs: needs a CUDA card")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = ring_scene(dev, args.seed)
+    rc = make_render_config()
+    tc = S.TrainConfig()
+    state = S.create_train_state(args.seed, rc, tc, n_images=N_TRAIN + N_VAL)
+    step_fn = S.make_train_step(rc, tc, H, W, N_TRAIN)
+    gen = torch.Generator(device=dev)
+    i = 0
+
+    def one(fn):
+        nonlocal i
+        i += 1
+        gen.manual_seed(((args.seed + 1) << 32) + i)
+        return fn(state, scene, gen)
+
+    for _ in range(3):  # builds the kernels and every cached table; then the capture
+        one(step_fn)
+    torch.cuda.synchronize()
+    report = {"device": torch.cuda.get_device_name(0), "steps": args.steps}
+    # the step as it runs (its CUDA graphs replayed), then op by op
+    for mode, fn in (("replayed", step_fn), ("eager", step_fn.eager)):
+        report[mode] = measure(functools.partial(one, fn), args)
+    report["graphs"] = {"captures": step_fn.captures, "replays": step_fn.replays}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -68,8 +68,8 @@ def main() -> int:
     optax.apply_updates = apply_updates
     adam_update = evaluate.adam_update
 
-    def recorded_port(params, grads, opt, lr):
-        adam_update(params, grads, opt, lr)
+    def recorded_port(params, grads, opt, feed):
+        adam_update(params, grads, opt, feed)
         steps["port"].append(params[0].detach().tolist())
 
     evaluate.adam_update = recorded_port
