@@ -2,45 +2,40 @@
 """Drives the PyTorch/CUDA port (scade_tpu_torch) on one NVIDIA card and checks it.
 
     python3 chip_smoke.py [--seed N] [--steps N]
-                          [--k1-only | --k2-only | --prior-only | --quality-only
-                           | --dp-only N]
+                          [--prior-only | --prior-dp-repeat N | --quality-only | --dp-only N]
 
-Builds the CUDA kernels from scade_tpu_torch/csrc/ (one nvcc per source, all
-at once), then prints one line per phase (with --k1-only the device and k1
-lines, with --k2-only the device and k2 lines, for comparing a kernel's
-builds of two trees on one card):
+Checks; times nothing (speed is benchmark/run.py's, a kernel's correctness
+alone tests/test_torch_cuda.py's). Builds the CUDA kernels from
+scade_tpu_torch/csrc/ (one nvcc per source, all at once), then prints one
+line per phase:
 
-  device  card name and power limit (nvidia-smi), build time, K1's registers,
-          spills and warnings (ptxas), its tile, ring stages and resident blocks, and
+  device  card name and power limit (nvidia-smi), K1's registers, spills and
+          warnings (ptxas), its tile, ring stages and resident blocks, and
           its tensor-core instructions (cuobjdump -sass: HGMMA, from wgmma, in
           bf16 and tf32; none of either, or any HMMA, is a fault)
   k1      the fused PE + MLP kernel, through its wrapper, against its plain
           version at the main path's launch shapes (D=8, W=256, F=9): a train
           step's 65,536 coarse and 196,608 fine points and a render chunk's
-          1,048,576 and 3,145,728, each in f32 and bf16, the weights' packing
-          included; in bf16 also the plain version against itself with its
-          sums reordered, and both against the same function summed in f64;
-          the weight bytes each launch reads from L2; K1's backward kernels
-          at a train step's two shapes (f32): bit-equal over two calls, held
-          to the plain f32 gradient and, where no ReLU decision is near 0,
-          to the f64 one, which a TF32-products control misses; their device
-          time beside their bound (the recompute, the input gradients and
-          the weight gradients in 3xTF32) and the plain recompute's time
+          1,048,576 and 3,145,728, each in f32 and bf16; in bf16 also the
+          plain version against itself with its sums reordered, and both
+          against the same function summed in f64; the weight bytes each
+          launch reads from L2 and its bound; K1's backward kernels at a
+          train step's two shapes (f32): bit-equal over two calls, held to
+          the plain f32 gradient and, where no ReLU decision is near 0, to
+          the f64 one, which a TF32-products control misses
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
           exactly 0 and 1: bit for bit the plain sample_pdf (the same CDF
           law, the JAX package's order of sums) on random and dyadic
           weights and on opaque rows (a ray's weight, 1.0 or 0.999, in 5
           adjacent bins, where an ulp of the CDF decides the 1e-5 guard),
-          with the guard's shares there; its device and wall times; one
-          forward call must run one kernel. Its backward kernel at 1,024
-          rays, M=63 and 191: bit for bit its torch transcription, two
-          launches equal, on dyadic weights against autograd through the
-          plain sample_pdf; device and wall times, the plain backward's, the
-          bytes bound; and on peaked weights (98% of a ray's weight in 3
-          adjacent bins, as a trained NeRF's) and opaque ones bit for bit
-          again, with their device times (opaque ones also against autograd
-          on every draw)
+          with the guard's shares there; one forward call must run one
+          kernel. Its backward kernel at 1,024 rays, M=63 and 191: bit for
+          bit its torch transcription, two launches equal, on dyadic weights
+          against autograd through the plain sample_pdf; and on peaked
+          weights (98% of a ray's weight in 3 adjacent bins, as a trained
+          NeRF's) and opaque ones bit for bit again (opaque ones also
+          against autograd on every draw)
   train   the reference-default train step (64+128 samples, 8x256, N_rand
           1024, f32) on a seeded scene shaped like a SCADE ScanNet scene:
           18 train + 2 val views at 468x624, K=20 hypotheses; from the
@@ -48,15 +43,11 @@ builds of two trees on one card):
           replayed step under the profiler, whose counted launches must be
           the kernels the card ran (2 K1, 2 K2, 1 K2 backward, 2 K1
           backward, by name in the trace)
-  split   where a train step's time goes (forward, backward, Adam), and the
-          step with both kernels off (their plain versions)
   repro   three train steps (eager, captured, replayed) twice from one
           state and seed through the CUDA graphs and once op by op, f32 and
           bf16: every parameter and Adam moment and the losses bit-equal;
-          the ops that
-          torch.use_deterministic_algorithms warns about in the step, and
-          the step's ms with that switch on and off
-  check   render_rays through the kernels against the plain path, 512 rays
+          the ops that torch.use_deterministic_algorithms warns about in
+          the step
   render  a full 468x624 val view through render_image, f32 and bf16
   cli     the port's CLI as a user runs it (python -m scade_tpu_torch): a
           ScanNet-shaped scene written to a temporary directory (18 train + 2
@@ -96,8 +87,7 @@ builds of two trees on one card):
   spvcnn  the SPVCNN classifier (prior/spvcnn.py) at cr=1.0 through
           refine_focal (5 channels) and refine_shift (3 channels) on a seeded
           468x624 depth map at the input functions' 100,000-point capacity: the
-          card's logits against the CPU's (f32, TF32 off), forward ms with
-          the kernel maps apart from the gathers and products, peak GB, the
+          card's logits against the CPU's (f32, TF32 off), peak GB, the
           voxel sites at each stride
   prior_train  the depth prior's training path as a user runs it:
           `python -m scade_tpu_torch.prior.train` on the cli phase's kind of
@@ -105,15 +95,13 @@ builds of two trees on one card):
           d_latent 32, 448 crop, the five-loss criterion, fresh seeded
           weights): one epoch at batch 4 (AdaIn init over the 18 views, a
           recache of 20 z a view, 5 SGD steps) in f32 with TF32 off, then a
-          short bf16 run; its files and finite losses; step times at batch 4
-          in f32, f32+TF32 and bf16 against the FLOP bound; and one SGD step
-          on the card against the CPU's (two batches, one with quality 3
-          and planes so that every loss carries gradient), its update held
-          to the same step in f64 as the CPU's is
+          short bf16 run; its files and finite losses; and one SGD step on
+          the card against the CPU's (two batches, one with quality 3 and
+          planes so that every loss carries gradient), its update held to
+          the same step in f64 as the CPU's is
   prior   the depth prior's inference path on the checkpoint prior_train
           wrote: the model loaded as a user's .pth is, at the 448 crop, the
-          card's f32 against the CPU's and bf16 against f32, forward times
-          and the FLOP bound; then
+          card's f32 against the CPU's and bf16 against f32; then
           `python -m scade_tpu_torch.prior.dump` on the cli phase's kind of
           scene (360 hypotheses, K=20, bf16) and the CLI's `train` for 5 steps
           on what it wrote, K1 and K2 at 2 launches a step
@@ -123,17 +111,16 @@ builds of two trees on one card):
           `python -m scade_tpu_torch.prior.train --dataset multi` for one
           epoch of the full-width model (16 examples interleaved, the AdaIn
           init over 8, a recache of 20 z each, 4 steps at batch 4, f32 with
-          TF32 off); its files, finite losses, the sources' order; step, recache
-          and host read times, peak memory. Then (line prior_dp) its
-          checkpoint's first step at global batch 4 on 2 ranks (torchrun,
-          gloo on the one card; the ranks' states bit-equal) against the
-          1-rank step and the f64 step, and
+          TF32 off); its files, finite losses, the sources' order, peak
+          memory. Then (line prior_dp) its checkpoint's first step at global
+          batch 4 on 2 ranks (torchrun, gloo on the one card; the ranks'
+          states bit-equal) against the 1-rank step and the f64 step, and
           the baseline model (ResNeXt101 + AuxiNetV2): card f32 against the
           CPU, a train-mode forward and backward with both criteria at batch 4
 
 then the kernels line (one JSON object per kernel, K2's backward its own:
-launches in the cli phase's train run, error, times and bound), the card's
-name and power limit, and last a JSON line naming the device. Exits non-zero, with no result line, when
+launches in the cli phase's train run, error and bound), the card's name
+and power limit, and last a JSON line naming the device. Exits non-zero, with no result line, when
 there is no CUDA device or any phase fails. Needs one card. With --dp-only N
 it runs the device phase, then the dp phase on N ranks (NCCL where there
 are N cards), for even N the tp phase on N ranks (N/2 x 2), and the prior's
@@ -150,18 +137,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
-import dataclasses
 import io
 import json
 import math
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
-import time
 import warnings
 from unittest import mock
 
@@ -175,7 +159,6 @@ from scade_tpu_torch.eval import evaluate
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
-from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.parallel import dist as par_dist
 from scade_tpu_torch.parallel import mesh as tp_mesh
 from scade_tpu_torch.prior import data as prior_data
@@ -184,22 +167,14 @@ from scade_tpu_torch.prior import losses as prior_losses
 from scade_tpu_torch.prior import model as prior_model
 from scade_tpu_torch.prior import spvcnn
 from scade_tpu_torch.prior import train as prior_train
-from scade_tpu_torch.render.renderer import (
-    SceneVars,
-    make_render_config,
-    render_image,
-    render_rays,
-)
+from scade_tpu_torch.render.renderer import SceneVars, make_render_config, render_image
 from scade_tpu_torch.train import loop
 from scade_tpu_torch.train import step as train_step
 from scade_tpu_torch.train.step import (
     SceneTensors,
     TrainConfig,
-    apply_grads,
-    compute_loss,
     create_train_state,
     make_train_step,
-    sample_ray_batch,
 )
 from scade_tpu_torch.utils import ckpt
 
@@ -253,7 +228,6 @@ K1_BWD_PLAIN_TOL, K1_BWD_TOL, K1_BWD_MARGIN = 1e-5, 5e-5, 2.0**-13
 # opaque ones: the gradients' sums run in other orders, and the plain
 # backward's gathers add with atomics (tests/test_torch_cuda.py::grads_close).
 K2_BWD_TOL = (1e-4, 1e-6, 1e-4)
-CHECK_TOL = {"rgb_map": 1e-3, "depth_map": 1e-2}
 # The prior phase: the dump's z dimension and K, and the NeRF steps on its output.
 PRIOR_D_LATENT, PRIOR_K, PRIOR_NERF_STEPS = 32, 20, 5
 # The card's f32 forward (TF32 off) against the CPU's: max abs error over max
@@ -304,8 +278,6 @@ PRETRAIN_ARGS = ["--epochs", "1", "--batchsize", "4", "--num_samples", "20",
 # (L2 over all parameters). --prior-dp-repeat prints both distances for N
 # fresh pretraining runs.
 PRETRAIN_DP_LOSS_REL, PRETRAIN_DP_BN_REL = 1e-3, 1e-4
-# Steps each rank times after the checked one.
-PRETRAIN_DP_TIMED = 1
 # The baseline model's auxi losses, on top of the five-loss default.
 AUXI_LOSS_MODE = (prior_losses.DEFAULT_LOSS_MODE
                   + "ranking-edge-auxi_msgil-normal-auxi_meanstd-tanh-auxi_")
@@ -348,7 +320,7 @@ TP_N_MODEL, TP_PLAIN_STEPS = 2, 1
 # (the logits with atol SPVCNN_ATOL): both sum in f32 in other orders
 # (the products, and index_add_ in the voxel means and pooling, which the
 # card sums in no fixed order); the sites and kernel maps are exact on both.
-SPVCNN_FOCAL, SPVCNN_RTOL, SPVCNN_ATOL, SPVCNN_REPS = 577.9, 1e-4, 1e-6, 5
+SPVCNN_FOCAL, SPVCNN_RTOL, SPVCNN_ATOL = 577.9, 1e-4, 1e-6
 # The --quality-only check: BASELINE.md round 5's dense-view head-to-head
 # (:977-1007), the port trained as a user trains it. The scene
 # (tools/make_synthetic_scene.py, numpy only): 32 train views at 96x128 with
@@ -373,19 +345,6 @@ def line(tag: str, **fields) -> None:
     print(f"{tag} " + json.dumps(fields), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def nerf_macs(D: int, W_: int, E: int) -> int:
     """Multiply-adds per point of the fused network (skip after layer 4)."""
     trunk = E * W_ + (D - 1) * W_ * W_ + E * W_  # layer 0, layers 1..D-1, skip rows
@@ -397,15 +356,12 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
-    per_source = _kernels.build()
-    build_s = time.perf_counter() - t0
+    _kernels.build()
     for name in _kernels.SOURCES:
         _kernels.load(name)
     tc = k1_tensor_core_instructions()
     ptxas = k1_ptxas()
-    line("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=round(build_s, 3), build_s_per_source=per_source, k1_sass=tc,
+    line("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda, k1_sass=tc,
          k1_ptxas=ptxas, k1_geometry=fused_mlp.kernel_geometry())
     if not (tc["HGMMA.F32.BF16"] and tc["HGMMA.F32.TF32"]) or tc["HMMA"]:
         raise RuntimeError(f"device: K1's layers are not all on wgmma (HGMMA): {tc}")
@@ -525,8 +481,7 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     path launches it with: a train step's coarse and fine passes and a full
     render chunk's, in f32 and bf16, each against the plain version. Bounds:
     bf16 at the tensor cores' bf16 rate; f32 at their TF32 rate for the
-    three products 3xTF32 takes (fma_bound_ms: one product at the CUDA
-    cores' f32 rate, the bound of the first K1)."""
+    three products 3xTF32 takes."""
     dev = torch.device("cuda")
     rc, tc = make_render_config(), TrainConfig()
     nc = rc.nerf_coarse
@@ -540,11 +495,6 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     launches = {f"{where}_{p}": rays * s for where, rays in (("train", tc.n_rand),
                                                                ("render", RENDER_CHUNK))
                 for p, s in per_ray.items()}
-    # The wrapper packs the weights on every call; kernel_ms includes it, and
-    # pack_ms is its share.
-    with torch.no_grad():
-        pack_ms = {name: cuda_ms(lambda: fused_mlp.pack_weights(weights, cfg, dt), 20)
-                   for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
     # Bytes each launch reads from L2: every staged chunk and the heads once
     # per tile.
     geo = fused_mlp.kernel_geometry()
@@ -558,7 +508,6 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     for key, n in launches.items():
         pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
         dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
-        reps = max(2, 655_360 // n)
         for dname, dt, peak, passes in (("f32", torch.float32, PEAK_TF32, 3),
                                         ("bf16", torch.bfloat16, PEAK_BF16, 1)):
             entry = {}
@@ -579,24 +528,17 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
                     del other, exact
                 ok = ok and bool(torch.isfinite(got).all())
                 del got, ref
-                ms = cuda_ms(lambda: fused_mlp.fused_nerf_apply(model, cfg, pts, dirs, dt), reps)
-                plain_ms = cuda_ms(lambda: fused_mlp.fused_mlp_plain(weights, cfg, pts, dirs, dt),
-                                   reps)
             flops = flop_per_point * n
             nbytes = n * (6 + 4) * 4 + n_params * (2 if dt == torch.bfloat16 else 4)
             ops_s, bytes_s = passes * flops / peak, nbytes / HBM_BYTES
             entry.update(
                 points=n, ok=ok, max_abs_err=err["max"], median_err=err["median"],
-                share_within_tol=err["share_within_tol"], kernel_ms=ms, plain_ms=plain_ms,
-                bound_ms=max(ops_s, bytes_s) * 1e3,
-                bound_by="operations" if ops_s >= bytes_s else "bytes",
-                tflops=flops / ms / 1e9)
+                share_within_tol=err["share_within_tol"], bound_ms=max(ops_s, bytes_s) * 1e3,
+                bound_by="operations" if ops_s >= bytes_s else "bytes")
             tiles = -(-n // geo["tile"])
             staged, heads = l2_bytes[dname]
             entry["l2_weight_bytes"] = tiles * (staged + heads)
             entry["l2_weight_bytes_per_point"] = entry["l2_weight_bytes"] / n
-            if dt == torch.float32:
-                entry["fma_bound_ms"] = flops / PEAK_F32 * 1e3
             res[f"{key}_{dname}"] = entry
         del pts, dirs
         torch.cuda.empty_cache()
@@ -607,23 +549,19 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
          tol=dict(f32=K1_TOL, bf16=dict(point=K1_TOL, share_slack=K1_BF16_SHARE_SLACK,
                                         max_ratio=K1_BF16_MAX_RATIO, median=K1_BF16_MEDIAN),
                   backward=dict(plain=K1_BWD_PLAIN_TOL, f64=K1_BWD_TOL, margin=K1_BWD_MARGIN)),
-         sass=sass, geometry=geo, pack_ms=pack_ms, **res)
+         sass=sass, geometry=geo, **res)
     bad = [k for k, r in res.items() if not r["ok"]]
     if bad:
         raise RuntimeError(f"k1: kernel disagrees with its plain version at {bad}")
     step = [res["train_coarse_f32"], res["train_fine_f32"]]  # one train step's two launches
     bwd = [res["train_coarse_backward"], res["train_fine_backward"]]
-    return dict(backward=dict(ms=sum(b["kernel_ms"] for b in bwd),
-                              plain_ms=sum(b["plain_ms"] for b in bwd),
-                              bound_ms=sum(b["bound_ms"] for b in bwd),
+    return dict(backward=dict(bound_ms=sum(b["bound_ms"] for b in bwd),
                               max_rel_err_vs_plain=max(b["max_rel_err_vs_plain"] for b in bwd),
                               max_rel_err_vs_f64=max(b["max_rel_err_vs_f64"] for b in bwd)),
                 max_abs_err=max(r["max_abs_err"] for k, r in res.items() if k.endswith("f32")),
                 max_abs_err_bf16=max(r["max_abs_err"] for k, r in res.items()
                                      if k.endswith("bf16")),
-                ms=sum(s["kernel_ms"] for s in step), plain_ms=sum(s["plain_ms"] for s in step),
-                bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"],
-                fma_bound_ms=sum(s["fma_bound_ms"] for s in step))
+                bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"])
 
 
 def k1_backward_macs(cfg) -> int:
@@ -664,9 +602,8 @@ def k1_backward(model, cfg, n: int, gen: torch.Generator) -> dict:
     """K1's backward kernels (fused_mlp_backward_cuda) at n points: two calls
     bit-equal, held to the plain f32 gradient (K1_BWD_PLAIN_TOL) and, away
     from ReLU decisions near 0, to the f64 one (K1_BWD_TOL), as a
-    TF32-products control is not;
-    device ms of each (one call a network, the weights' two packings
-    included) and the bound: k1_backward_macs in 3xTF32 at the TF32 rate."""
+    TF32-products control is not; the bound: k1_backward_macs in 3xTF32 at
+    the TF32 rate."""
     dev = torch.device("cuda")
     pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
     dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
@@ -701,14 +638,9 @@ def k1_backward(model, cfg, n: int, gen: torch.Generator) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
     ok = (counted and bit_equal and vs_plain <= K1_BWD_PLAIN_TOL and vs_f64 <= K1_BWD_TOL
           and control > K1_BWD_TOL)
-    del again, exact
-    reps = max(2, 655_360 // n)
-    ms = cuda_ms(lambda: fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g), reps)
-    plain_ms = cuda_ms(plain, reps)
     return dict(points=n, ok=ok, bit_equal=bit_equal, launches_counted=counted,
                 max_rel_err_vs_plain=vs_plain, max_rel_err_vs_f64=vs_f64,
                 tf32_control_vs_f64=control, points_zeroed=near.float().mean().item(),
-                kernel_ms=ms, plain_ms=plain_ms,
                 bound_ms=3 * 2 * k1_backward_macs(cfg) * n / PEAK_TF32 * 1e3,
                 bound_by="operations")
 
@@ -792,39 +724,6 @@ def busiest_entry(w, u) -> float:
     return counts.amax(-1).mean().item()
 
 
-def graph_us(fn, n: int = 50, reps: int = 5) -> float:
-    """Device µs per call of ``fn``: ``n`` calls captured in one CUDA graph,
-    replayed ``reps`` times between two events, so no host time is in it."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (reps * n) * 1e3
-
-
-def wall_us(fn, n: int = 200) -> float:
-    """Host-clock µs per call of ``fn`` over ``n`` calls ended by a synchronize:
-    the larger of the host's time per call and the device's."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e6
-
-
 def device_ops(fn) -> list:
     """Names of the device operations (kernels, copies, fills) that one call
     of ``fn`` runs, from a torch.profiler trace."""
@@ -843,11 +742,8 @@ def phase_k2(gen: torch.Generator) -> dict:
     step's 1,024 rays, a render chunk's 16,384 with broadcast draws, and
     65,536), at the fine resampling's M=63 and the P_depth draws' M=191,
     S=128: bit for bit the plain sample_pdf (the same CDF law) on random,
-    dyadic and opaque weights, with the guard's shares on the opaque ones. Times: the kernel's device µs (CUDA graph; on opaque rows
-    too), the wall µs of a call of fused_sample_pdf (host included) and of
-    its launcher alone, and events around back-to-back calls (which read
-    the host wherever it is the slower side); the plain sample_pdf; the
-    bytes bound. Then the device operations one forward call runs."""
+    dyadic and opaque weights, with the guard's shares on the opaque ones;
+    the bytes bound. Then the device operations one forward call runs."""
     S = 128
     shapes = {}
     ok = True
@@ -872,13 +768,7 @@ def phase_k2(gen: torch.Generator) -> dict:
             del got, plain, got_d, plain_d
             shape_ok = exact and exact_d and copies and bit_equal_o and finite
             ok = ok and shape_ok
-            device_us = graph_us(lambda: fused_sampling.sample_pdf_cuda(bins, w, u))
-            device_us_o = graph_us(lambda: fused_sampling.sample_pdf_cuda(bins, opaque, u))
             del opaque
-            call_us = wall_us(lambda: fused_sampling.fused_sample_pdf(bins, w, u))
-            launcher_us = wall_us(lambda: fused_sampling.sample_pdf_cuda(bins, w, u))
-            events_us = cuda_ms(lambda: fused_sampling.fused_sample_pdf(bins, w, u), 200) * 1e3
-            plain_ms = cuda_ms(lambda: sampling.sample_pdf(bins, w, u), 50)
             u_rows = 1 if u.stride(0) == 0 else R
             nbytes = (R * (M + (M - 1) + S) + u_rows * S) * 4
             # per weight: +1e-5, two sums, a divide, the CDF's add; per draw:
@@ -887,10 +777,7 @@ def phase_k2(gen: torch.Generator) -> dict:
             shapes[f"R{R}_M{M}"] = dict(
                 ok=shape_ok, u_row_stride=u.stride(0), max_abs_err=err, bit_equal=exact,
                 max_abs_err_dyadic=err_d, bit_equal_dyadic=exact_d, strided_equals_copies=copies,
-                bit_equal_opaque=bit_equal_o, guard_share_opaque=guard, device_us=device_us,
-                device_us_opaque=device_us_o,
-                wall_us=call_us, launcher_wall_us=launcher_us, events_us=events_us,
-                plain_ms=plain_ms,
+                bit_equal_opaque=bit_equal_o, guard_share_opaque=guard,
                 bound_ms=max(nbytes / HBM_BYTES, ops / PEAK_F32) * 1e3,
                 bound_by="bytes" if nbytes / HBM_BYTES >= ops / PEAK_F32 else "operations")
             del bins, w, u, dyadic
@@ -917,18 +804,11 @@ def phase_k2(gen: torch.Generator) -> dict:
     step = [shapes["R1024_M63"], shapes["R1024_M191"]]  # one train step's two launches
     b = bwd["R1024_M191"]  # and its one backward launch
     return dict(max_abs_err=max(s["max_abs_err"] for s in shapes.values()),
-                ms=sum(s["device_us"] for s in step) / 1e3,
-                wall_ms=sum(s["wall_us"] for s in step) / 1e3,
-                plain_ms=sum(s["plain_ms"] for s in step),
                 bound_ms=sum(s["bound_ms"] for s in step), bound_by=step[1]["bound_by"],
                 bwd=dict(max_abs_err=max(v["max_abs_err"] for v in bwd.values()),
                          rel_err_vs_autograd_dyadic=max(v["rel_err_vs_autograd_dyadic"]
                                                         for v in bwd.values()),
-                         ms=b["device_us"] / 1e3, wall_ms=b["wall_us"] / 1e3,
-                         ms_peaked=b["device_us_peaked"] / 1e3,
-                         ms_opaque=b["device_us_opaque"] / 1e3,
-                         plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
-                         bound_by=b["bound_by"]))
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"]))
 
 
 def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
@@ -938,15 +818,13 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     three gradients), two launches bit-equal, the weights' view equal to its
     copy; on dyadic weights (an exact CDF) against autograd through the
     plain sample_pdf within K2_BWD_TOL (rtol, and atol of the largest
-    entry). Times: device µs (CUDA graph) and wall µs of the launcher asking
-    for the weights' gradient alone, as the train step does; the plain
-    backward (the forward recomputed, then autograd through it: the
-    backward before this kernel); the bytes bound. Then on peaked weights
-    (k2_peaked, the same bins, draws and g) and opaque ones (k2_opaque): bit
-    for bit the transcription again, on opaque ones also against autograd
-    through the plain sample_pdf on every draw (K2_BWD_TOL[2]), and the
-    device and wall µs; for uniform and peaked weights the mean over the
-    rays of the busiest entry's terms."""
+    entry); the bytes bound and the device operations of one call asking
+    for the weights' gradient alone, as the train step does. Then on peaked
+    weights (k2_peaked, the same bins, draws and g) and opaque ones
+    (k2_opaque): bit for bit the transcription again, on opaque ones also
+    against autograd through the plain sample_pdf on every draw
+    (K2_BWD_TOL[2]); for uniform and peaked weights the mean over the rays
+    of the busiest entry's terms."""
     bins, w, u, dyadic = k2_inputs(gen, R, M, S)
     g = torch.randn(R, S, generator=gen).to("cuda")
 
@@ -981,10 +859,6 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
     rel_o = rel_err(got_o, torch.autograd.grad(sampling.sample_pdf(*leaves), leaves, g),
                     K2_BWD_TOL[2])
     del got_p, got_o, leaves
-    wl = w.detach().requires_grad_(True)
-    device_us = graph_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
-    call_us = wall_us(lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g))
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(sampling.sample_pdf(bins, wl, u), wl, g), 50)
     nbytes = R * (M + (M - 1) + 2 * S + (M - 1)) * 4
     # per weight: the CDF build's 5 and the reverse scan's 5; per draw:
     # ceil(log2(M + 1)) compares, then 14 operations and 4 adds into the bins
@@ -995,16 +869,8 @@ def k2_backward(gen: torch.Generator, R: int, M: int, S: int) -> dict:
                 strided_equals_copy=copies, rel_err_vs_autograd_dyadic=rel,
                 bit_equal_kernel_order_peaked=exact_p, bit_equal_kernel_order_opaque=exact_o,
                 rel_err_vs_autograd_opaque=rel_o, guard_share_opaque=guard_shares(opaque, u),
-                device_us=device_us,
-                device_us_peaked=graph_us(
-                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
-                device_us_opaque=graph_us(
-                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, opaque, u, g)),
-                wall_us=call_us,
-                wall_us_peaked=wall_us(
-                    lambda: fused_sampling.sample_pdf_backward_cuda(bins, peaked, u, g)),
                 busiest_entry_terms=busiest_entry(w, u),
-                busiest_entry_terms_peaked=busiest_entry(peaked, u), plain_ms=plain_ms,
+                busiest_entry_terms_peaked=busiest_entry(peaked, u),
                 device_ops_per_call=device_ops(
                     lambda: fused_sampling.sample_pdf_backward_cuda(bins, w, u, g)),
                 bound_ms=max(nbytes / HBM_BYTES, ops / PEAK_F32) * 1e3,
@@ -1106,16 +972,15 @@ def phase_train(seed: int, steps: int):
     state = create_train_state(seed, rc, tc, n_images=N_TRAIN + N_VAL)
     step_fn = make_train_step(rc, tc, H, W, N_TRAIN)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    times, losses = [], []
+    losses = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()  # the k1 phase's plain version peaks far higher
     reset_counts()
     for _ in range(steps):
-        t0 = time.perf_counter()
-        metrics = step_fn(state, scene, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+        # a replayed step's metrics are its graphs' buffers, which the next
+        # step overwrites
+        losses.append(step_fn(state, scene, gen)["loss"].clone())
+    losses = torch.stack(losses).tolist()
     launches = counts()
     finite = all(math.isfinite(x) for x in losses)
     # K1's backward kernels run once a network a step
@@ -1127,58 +992,16 @@ def phase_train(seed: int, steps: int):
     _, counted, ran = traced_launches(lambda: step_fn(state, scene, gen))
     replay_ok = (counted == ran == {**per_step(), "k1_bwd": 2}
                  and (step_fn.captures, step_fn.replays) == (1, steps))
-    tail = times[-10:]
     line("train", steps=steps, n_rand=tc.n_rand, loss_first=losses[0], loss_last=losses[-1],
          finite=finite, graphs=dict(captures=step_fn.captures, replays=step_fn.replays),
          replayed_step=dict(counters=counted, device_kernels=ran), replayed_step_ok=replay_ok,
-         ms_per_step_median_last10=statistics.median(tail),
-         ms_per_step_last10=tail, first_step_ms=times[0], launches=launches,
-         launches_per_step_ok=per_step_ok,
+         launches=launches, launches_per_step_ok=per_step_ok,
          hyps_gb=scene.hyps.numel() * 4 / 1e9,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not (finite and per_step_ok and replay_ok):
         raise RuntimeError("train: non-finite loss, wrong kernel launch count, or a replay's "
                            "counters differ from the kernels it ran")
-    return state, scene, rc, tc, launches, statistics.median(tail)
-
-
-def phase_split(state, scene, rc, tc, seed: int, steps: int = 5) -> None:
-    """Where a train step's time goes: the batch gather and forward pass
-    (both K1 and both K2 launches), the backward pass (through the plain
-    versions) and the two Adams, each ended by a synchronize. Then the whole
-    step with both kernels off, so that their plain versions run instead."""
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    parts = {"forward": [], "backward": [], "adam": []}
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch = sample_ray_batch(gen, scene, H, W, N_TRAIN, tc)
-        loss, metrics = compute_loss(state, scene, batch, rc, tc, generator=gen)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = torch.autograd.grad(loss, state.nerf_params() + [state.scales, state.shifts],
-                                    allow_unused=True)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        apply_grads(state, list(grads[:-2]), grads[-2], grads[-1], tc, N_TRAIN, metrics)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for name, dt in (("forward", t1 - t0), ("backward", t2 - t1), ("adam", t3 - t2)):
-            parts[name].append(dt * 1e3)
-    plain_fn = make_train_step(make_render_config(use_fused=False, fused_sampling=False),
-                               tc, H, W, N_TRAIN)
-    plain = []
-    for _ in range(steps + 1):  # the first is a warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = plain_fn(state, scene, gen)
-        torch.cuda.synchronize()
-        plain.append((time.perf_counter() - t0) * 1e3)
-    medians = {f"{k}_ms_median": statistics.median(v) for k, v in parts.items()}
-    line("split", steps=steps, **medians, plain_step_ms_median=statistics.median(plain[1:]),
-         plain_loss=float(metrics["loss"]))
-    if not math.isfinite(float(metrics["loss"])):
-        raise RuntimeError("split: non-finite loss on the plain path")
+    return state, scene, tc, launches
 
 
 def repro_run(state, scene, rc, tc, seed: int, eager: bool = False, steps: int = 3):
@@ -1206,10 +1029,9 @@ def phase_repro(state, scene, tc, seed: int) -> None:
     steps twice through the CUDA graphs from the train phase's state with
     generators of one seed, and once op by op: every parameter and both
     Adams' moments (which carry the gradients as applied) compared with
-    torch.equal, the differing tensors named, and the losses. Then the step
-    under torch.use_deterministic_algorithms(True, warn_only=True), op by
-    op: the ops it warns about (ops with no deterministic form) and its ms
-    against the step's without it (5 steps each, after one)."""
+    torch.equal, the differing tensors named, and the losses. Then two
+    steps under torch.use_deterministic_algorithms(True, warn_only=True), op
+    by op: the ops it warns about (ops with no deterministic form)."""
     names = [f"{w}.{n}" for w, m in (("coarse", state.model_coarse), ("fine", state.model_fine))
              for n, _ in m.named_parameters()] + ["scales", "shifts"]
     names += [f"{k}:{n}" for k in ("mu", "nu") for n in names[:-2]]
@@ -1227,49 +1049,21 @@ def phase_repro(state, scene, tc, seed: int) -> None:
     step_fn = make_train_step(rc, tc, H, W, N_TRAIN).eager
     st = copy.deepcopy(state)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    ms = {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for mode in (False, True, False, True):
-            torch.use_deterministic_algorithms(mode, warn_only=True)
-            try:
-                times = []
-                for _ in range(6):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    step_fn(st, scene, gen)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t0) * 1e3)
-            finally:
-                torch.use_deterministic_algorithms(False)
-            ms.setdefault("switch_on" if mode else "switch_off", []).extend(times[1:])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for _ in range(2):
+                step_fn(st, scene, gen)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
     warned = sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)})
     ok = all(r["losses_equal"] and not r["differ"] and not r["differ_from_eager"]
              and r["graphs"] == [dict(captures=1, replays=2)] * 2 for r in res.values())
-    line("repro", **res, deterministic_algorithms_warnings=warned,
-         ms_per_step_median={k: statistics.median(v) for k, v in ms.items()}, ok=ok)
+    line("repro", **res, deterministic_algorithms_warnings=warned, ok=ok)
     if not ok:
         raise RuntimeError(f"repro: three steps from one state and seed differ between runs: {res}")
-
-
-def phase_check(state, scene, rc) -> None:
-    """render_rays with both kernels against the plain path on the same rays."""
-    i_val = N_TRAIN
-    c2w, intr = scene.poses[i_val], scene.intrinsics[i_val]
-    rays_o, rays_d = get_rays(H, W, intr, c2w)
-    idx = torch.randperm(H * W, generator=torch.Generator().manual_seed(0))[:512].to("cuda")
-    ro, rd = rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx]
-    sv = SceneVars(state.model_coarse, state.model_fine, scene.bb_center, scene.bb_scale,
-                   torch.zeros(0, device="cuda"))
-    plain = make_render_config(use_fused=False, fused_sampling=False).test_mode()
-    with torch.no_grad():
-        a = render_rays(sv, rc.test_mode(), ro, rd, scene.near, scene.far)
-        b = render_rays(sv, plain, ro, rd, scene.near, scene.far)
-    errs = {k: (a[k] - b[k]).abs().max().item() for k in CHECK_TOL}
-    ok = all(errs[k] <= CHECK_TOL[k] for k in CHECK_TOL)
-    line("check", rays=512, max_abs_err=errs, tol=CHECK_TOL, ok=ok)
-    if not ok:
-        raise RuntimeError("check: kernel path disagrees with the plain path")
 
 
 def phase_render(state, scene) -> dict:
@@ -1279,19 +1073,15 @@ def phase_render(state, scene) -> dict:
     res = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         rc = make_render_config(compute_dtype=dt)
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         out = render_image(sv, rc, H, W, scene.intrinsics[i_val], scene.poses[i_val],
                            float(scene.near), float(scene.far), chunk=RENDER_CHUNK,
                            outputs=("rgb_map", "depth_map", "acc_map"))
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
         chunks = -(-H * W // RENDER_CHUNK)
         ok = (tuple(out["rgb_map"].shape) == (H, W, 3) and tuple(out["depth_map"].shape) == (H, W)
               and all(bool(torch.isfinite(v).all()) for v in out.values())
               and counts() == per_view(chunks))
-        res[name] = dict(seconds=sec, rays_per_s=H * W / sec, ok=ok, chunks=chunks,
+        res[name] = dict(ok=ok, chunks=chunks,
                          launches=counts(), rgb_mean=out["rgb_map"].mean().item(),
                          depth_mean=out["depth_map"].mean().item())
         if not ok:
@@ -1352,42 +1142,30 @@ def write_scene(root: str, seed: int) -> dict:
 
 
 class CliProbe:
-    """Watches the CLI's run without changing it: the kernel launches and a
-    CUDA event after every train step (no synchronize), each step's loss
-    tensor (a copy on the card) and TrainConfig, each step function's
-    CUDA-graph captures and replays (not the function, whose graphs' memory
-    pool would outlive its run), the launches and wall time of every rendered
-    view (a video frame's render ends in copies to the host), the wall time
-    of the eval path's renders (which end in copies to the host), of each
-    camera-latent fit (ends in a copy to the host) and of the scene load,
-    and how the hypotheses were read. With ``first_grads`` it also keeps a
-    host copy of the first train step's gradients, as the step applies them
-    (under ranks: summed over the ranks). With ``trace_step`` it runs that
-    step (1-based) under the profiler (``traced_launches``, which
-    synchronizes) and keeps its counted launches and the kernels the card
-    ran in ``traced``."""
+    """Watches the CLI's run without changing it: the kernel launches after
+    every train step, each step's loss tensor (a copy on the card) and
+    TrainConfig, each step function's CUDA-graph captures and replays (not
+    the function, whose graphs' memory pool would outlive its run), the
+    launches of every rendered view, and how the hypotheses were read. With
+    ``first_grads`` it also keeps a host copy of the first train step's
+    gradients, as the step applies them (under ranks: summed over the
+    ranks). With ``trace_step`` it runs that step (1-based) under the
+    profiler (``traced_launches``, which synchronizes) and keeps its counted
+    launches and the kernels the card ran in ``traced``."""
 
     def __init__(self, first_grads: bool = False, trace_step: int = 0):
         self.trace_step, self.traced = trace_step, None
-        self.step_launches, self.view_launches, self.view_s = [], [], []
-        self.events, self.host_ms, self.losses, self.configs = [], [], [], []
-        self.eval_s, self.eval_views, self.load_s, self.hyp_load = 0.0, 0, [], []
-        self.fit_s, self.first_grads, self.graph_counts = [], None, []
+        self.step_launches, self.view_launches, self.losses, self.configs = [], [], [], []
+        self.hyp_load, self.first_grads, self.graph_counts = [], None, []
         self._patches = [
             mock.patch.object(loop, "make_train_step", self._wrap_make_train_step(
                 loop.make_train_step)),
             mock.patch.object(evaluate, "render_image", self._wrap_render_image(
                 evaluate.render_image)),
-            mock.patch.object(loop, "render_images_with_metrics", self._wrap_eval(
-                loop.render_images_with_metrics)),
-            mock.patch.object(evaluate, "render_images_with_metrics", self._wrap_eval(
-                evaluate.render_images_with_metrics)),
             mock.patch.object(scene_io, "load_scene_scannet", self._wrap_load(
                 scene_io.load_scene_scannet)),
             mock.patch.object(scene_io, "load_scene_processed", self._wrap_load(
                 scene_io.load_scene_processed)),
-            mock.patch.object(evaluate, "optimize_camera_embedding", self._wrap_fit(
-                evaluate.optimize_camera_embedding)),
         ]
         if first_grads:
             self._patches.append(mock.patch.object(train_step, "apply_grads", self._wrap_apply(
@@ -1410,19 +1188,15 @@ class CliProbe:
             self.graph_counts.append(graphs)
 
             def step(*a, **kw):
-                before, t0 = counts(), time.perf_counter()
+                before = counts()
                 if len(self.step_launches) + 1 == self.trace_step:
                     metrics, counted, ran = traced_launches(lambda: step_fn(*a, **kw))
                     self.traced = dict(counters=counted, device_kernels=ran)
                 else:
                     metrics = step_fn(*a, **kw)
-                self.host_ms.append((time.perf_counter() - t0) * 1e3)
                 graphs.update(captures=step_fn.captures, replays=step_fn.replays)
                 after = counts()
                 self.step_launches.append({k: after[k] - before[k] for k in after})
-                event = torch.cuda.Event(enable_timing=True)
-                event.record()
-                self.events.append(event)
                 # a replayed step's metrics are its graphs' buffers, which the
                 # next step overwrites
                 self.losses.append(metrics["loss"].clone())
@@ -1443,49 +1217,23 @@ class CliProbe:
 
     def _wrap_render_image(self, render):
         def wrapped(*args, **kwargs):
-            before, t0 = counts(), time.perf_counter()
+            before = counts()
             out = render(*args, **kwargs)
-            torch.cuda.synchronize()
-            self.view_s.append(time.perf_counter() - t0)
             after = counts()
             self.view_launches.append({k: after[k] - before[k] for k in after})
             return out
         return wrapped
 
-    def _wrap_eval(self, fn):
-        def wrapped(count, indices, *args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(count, indices, *args, **kwargs)
-            self.eval_s += time.perf_counter() - t0
-            self.eval_views += len(indices) if count is None else count
-            return out
-        return wrapped
-
     def _wrap_load(self, fn):
         def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            self.load_s.append(time.perf_counter() - t0)
             self.hyp_load.append(out.hypothesis_load)
-            return out
-        return wrapped
-
-    def _wrap_fit(self, fn):
-        def wrapped(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            self.fit_s.append(time.perf_counter() - t0)
             return out
         return wrapped
 
     def graphs(self) -> dict:
         """The train steps' CUDA-graph captures and replays, summed."""
         return {k: sum(g[k] for g in self.graph_counts) for k in ("captures", "replays")}
-
-    def step_ms(self) -> list:
-        """Device-side ms of each step after the first: between the events
-        recorded after consecutive steps, so host stalls between steps count."""
-        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
 
 
 def read_metrics(path: str) -> dict:
@@ -1504,7 +1252,7 @@ def metrics_agree(a: dict, b: dict) -> bool:
         for x, y in zip(a.values(), b.values()))
 
 
-def phase_cli(tmp: str, seed: int, train_median_ms: float):
+def phase_cli(tmp: str, seed: int):
     """The port's CLI as a user runs it: ``train`` for 20 steps at the
     reference defaults (64+128 samples, 8x256, N_rand 1024, f32, kernels on)
     on a ScanNet-shaped scene read from disk, a .tar at steps 10 and 20, the
@@ -1523,9 +1271,7 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
     cwd = os.getcwd()
     log = io.StringIO()
     try:
-        t0 = time.perf_counter()
         scene = write_scene(tmp, seed)
-        write_s = time.perf_counter() - t0
         os.chdir(tmp)
         common = cli_common(tmp, seed)
         # step 5 a replay, traced; the memory peak of the whole command, its
@@ -1535,12 +1281,10 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
-            t0 = time.perf_counter()
             state = cli.main("scannet", ["train", *common, "--num_iterations", "20",
                                          "--i_weights", "10", "--i_print", "10",
                                          "--i_img", "20"])
             torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
             train_launches = counts()
             peak_gb = dict(allocated=torch.cuda.max_memory_allocated() / 1e9,
                            reserved=torch.cuda.max_memory_reserved() / 1e9)
@@ -1548,21 +1292,15 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
         train_metrics = read_metrics(os.path.join(result_dir, "metrics.txt"))
         with CliProbe() as test, contextlib.redirect_stdout(log):
             reset_counts()
-            t0 = time.perf_counter()
             cli.main("scannet", ["test", *common])
-            torch.cuda.synchronize()
-            test_s = time.perf_counter() - t0
             test_launches = counts()
         test_metrics = read_metrics(os.path.join(result_dir, "metrics.txt"))
         # the same run resumed: 10 steps, then 10 more from its 000010.tar
-        t0 = time.perf_counter()
         with CliProbe() as resumed, contextlib.redirect_stdout(log):
             for n in (10, 20):
                 cli.main("scannet", ["train", *cli_common(tmp, seed, "cli_resumed"),
                                      "--num_iterations", str(n), "--i_weights", "10",
                                      "--i_print", "10", "--i_img", "1000000"])
-            torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
         repro = tars_equal(os.path.join("ckpt", "cli", "000020.tar"),
                            os.path.join("ckpt", "cli_resumed", "000020.tar"))
         resumed_ok = len(resumed.step_launches) == 20 and all(
@@ -1614,23 +1352,12 @@ def phase_cli(tmp: str, seed: int, train_median_ms: float):
                                           ("psnr", ("train",))))
         files = sorted(os.listdir(result_dir))
 
-        step_ms = train.step_ms()  # step_ms[i - 2] ends at step i
-        last10 = step_ms[-10:]
         line("cli", views=scene["views"], H=H, W=W, K=K_HYP, hyps_gb=scene["hyps_gb"],
-             scene_write_s=write_s, scene_load_s=train.load_s[0], test_scene_load_s=test.load_s[0],
-             train_command_s=train_s, test_command_s=test_s,
-             loop_ms_per_step_median_11_20=statistics.median(last10),
-             loop_ms_per_step_mean_11_20=statistics.mean(last10), loop_ms_per_step_11_20=last10,
-             loop_host_ms_per_step_median_11_20=statistics.median(train.host_ms[10:]),
-             train_phase_ms_per_step_median=train_median_ms,
-             s_per_view_train_eval=train.eval_s / train.eval_views,
-             s_per_view_test=test.eval_s / test.eval_views,
-             eval_views=dict(train=train.eval_views, test=test.eval_views),
              launches=dict(train=train_launches, test=test_launches,
                            per_step=train.step_launches[0], per_view=train.view_launches[0]),
              launches_per_step_ok=steps_ok, launches_per_view_ok=views_ok,
              loss_first=losses[0], loss_last=losses[-1], finite=finite, tar_bit_equal=tar_ok,
-             repro_bit_equal=repro, resumed_command_s=resume_s, graphs=graphs,
+             repro_bit_equal=repro, graphs=graphs,
              replayed_step_5=train.traced, train_command_peak_gb=peak_gb,
              resumed_losses_equal=[float(x) for x in resumed.losses] == losses,
              metrics_train=train_metrics, metrics_test=test_metrics, metrics_agree=agree,
@@ -1687,22 +1414,16 @@ def phase_tasks(tmp: str, seed: int, test_metrics: dict) -> dict:
     try:
         os.chdir(tmp)
         common = cli_common(tmp, seed)
-        with CliProbe() as opt, contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log):
             reset_counts()
-            t0 = time.perf_counter()
             cli.main("scannet", ["test_opt", *common])
-            torch.cuda.synchronize()
-            opt_s = time.perf_counter() - t0
             opt_launches = counts()
         opt_metrics = read_metrics(os.path.join(
             "ckpt", "cli", "test_images_with_optimization_scene", "metrics.txt"))
 
         with CliProbe() as vid, contextlib.redirect_stdout(log):
             reset_counts()
-            t0 = time.perf_counter()
             video_file = cli.main("scannet", ["video", *common])
-            torch.cuda.synchronize()
-            video_s = time.perf_counter() - t0
             video_launches = counts()
         frames = sorted(os.listdir(os.path.join("ckpt", "cli", "video_0")))
         decoded = video_frames(video_file)
@@ -1712,14 +1433,10 @@ def phase_tasks(tmp: str, seed: int, test_metrics: dict) -> dict:
             reset_counts()
             cli.main("scannet", ["train", *cam, "--num_iterations", "5", "--i_weights", "5",
                                  "--i_img", "1000000", "--i_print", "1000000"])
-            torch.cuda.synchronize()
             cam_train_launches = counts()
-        with CliProbe() as cam_opt, contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log):
             reset_counts()
-            t0 = time.perf_counter()
             cli.main("scannet", ["test_opt", *cam])
-            torch.cuda.synchronize()
-            cam_opt_s = time.perf_counter() - t0
             cam_opt_launches = counts()
         latent_dir = os.path.join("ckpt", "cam", "test_latent_codes_scene")
         latents = {n: np.loadtxt(os.path.join(latent_dir, n)) for n in sorted(os.listdir(latent_dir))}
@@ -1739,19 +1456,16 @@ def phase_tasks(tmp: str, seed: int, test_metrics: dict) -> dict:
                 v.shape == (4,) and np.isfinite(v).all() for v in latents.values()),
             "latent test_opt launches": cam_opt_launches["k1"] == 0 and cam_opt_launches["k2"] > 0,
         }
-        line("tasks", test_opt=dict(command_s=opt_s, s_per_view=opt.eval_s / opt.eval_views,
-                                    launches=opt_launches, metrics=opt_metrics),
-             video=dict(command_s=video_s, frames=len(frames), decoded_frames=decoded,
+        line("tasks", test_opt=dict(launches=opt_launches, metrics=opt_metrics),
+             video=dict(frames=len(frames), decoded_frames=decoded,
                         file=os.path.basename(video_file), H=H,
                         W=int(H / 9.0 * 16.0 / 3.0) // 2 * 2, chunks_per_frame=chunks_per_frame,
-                        s_per_frame=vid.view_s, launches_per_frame=vid.view_launches,
+                        launches_per_frame=vid.view_launches,
                         launches=video_launches, ffmpeg=shutil.which("ffmpeg") is not None),
              latent=dict(input_ch_cam=4, train_steps=5,
                          train_launches_per_step=cam_train.step_launches[0],
                          train_launches=cam_train_launches,
                          train_loss_last=float(cam_train.losses[-1]),
-                         test_opt_command_s=cam_opt_s, fit_s_per_image=cam_opt.fit_s,
-                         render_s_per_view=cam_opt.eval_s / cam_opt.eval_views,
                          test_opt_launches=cam_opt_launches,
                          latents={k: v.tolist() for k, v in latents.items()}),
              checks=checks)
@@ -1779,20 +1493,14 @@ def phase_wild(tmp: str, seed: int) -> dict:
         common = cli_common(tmp, seed, "wild")
         with CliProbe() as train, contextlib.redirect_stdout(log):
             reset_counts()
-            t0 = time.perf_counter()
             wild.main_wild(["train", *common, "--mask_edges", "true", "--num_iterations", "10",
                             "--i_weights", "10", "--i_print", "5", "--i_img", "1000000"])
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
             train_launches = counts()
         result = os.path.join("ckpt", "wild", "test_images_scene", "metrics.txt")
         train_metrics = read_metrics(result)
-        with CliProbe() as test, contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log):
             reset_counts()
-            cli_s = time.perf_counter()
             wild.main_wild(["test", *common])
-            torch.cuda.synchronize()
-            test_s = time.perf_counter() - cli_s
             test_launches = counts()
         test_metrics = read_metrics(result)
         losses = [float(v) for v in train.losses]
@@ -1809,8 +1517,7 @@ def phase_wild(tmp: str, seed: int) -> dict:
             "metrics.txt agree": metrics_agree(train_metrics, test_metrics),
             "finite metrics": all(math.isfinite(test_metrics[k]) for k in ("psnr", "ssim")),
         }
-        line("wild", steps=10, train_command_s=train_s, test_command_s=test_s,
-             loop_ms_per_step_median=statistics.median(train.step_ms()),
+        line("wild", steps=10,
              loss_first=losses[0], loss_last=losses[-1], launches=dict(
                  train=train_launches, test=test_launches, per_step=train.step_launches[0]),
              mask_edges=tc.mask_edges, mask_rgb=tc.mask_rgb, hypothesis_load=train.hyp_load[0],
@@ -1854,16 +1561,15 @@ def torchrun(out_dir: str, argv: list, log: io.StringIO, world: int) -> list:
 
 def dp_worker(out_dir: str, argv: list) -> int:
     """One rank of the dp phase: the CLI's main under a CliProbe, then the
-    rank's launches, step times, losses and (for train) parameters."""
+    rank's launches, losses and (for train) parameters."""
     rank = int(os.environ["RANK"])
     with CliProbe(first_grads=argv[0] == "train") as probe:
         reset_counts()
         state = cli.main("scannet", argv)
         torch.cuda.synchronize()
     rec = dict(rank=rank, launches=counts(), step_launches=probe.step_launches,
-               step_ms=probe.step_ms(), host_ms=probe.host_ms,
                losses=[float(v) for v in probe.losses], view_launches=probe.view_launches,
-               view_s=probe.view_s, hypothesis_load=probe.hyp_load, graphs=probe.graphs())
+               hypothesis_load=probe.hyp_load, graphs=probe.graphs())
     if argv[0] == "train":
         torch.save(model_params(state), os.path.join(out_dir, f"rank{rank}.pt"))
         torch.save(probe.first_grads, os.path.join(out_dir, f"rank{rank}_grads.pt"))
@@ -1925,16 +1631,13 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
             with CliProbe(first_grads=True) as probe, contextlib.redirect_stdout(log):
                 reset_counts()
                 cli.main("scannet", ["train", *cli_common(tmp, seed, name), *flags])
-                torch.cuda.synchronize()
             one_graphs.append(probe.graphs())
-            one[name] = dict(losses=[float(v) for v in probe.losses], step_ms=probe.step_ms(),
+            one[name] = dict(losses=[float(v) for v in probe.losses],
                              launches=probe.step_launches, grads=probe.first_grads,
                              params=tar_params(os.path.join("ckpt", name, f"{DP_STEPS:06d}.tar")))
         out = os.path.join(tmp, "dp_ranks")
         os.makedirs(out, exist_ok=True)
-        t0 = time.perf_counter()
         ranks = torchrun(out, ["train", *cli_common(tmp, seed, "dp2"), *flags], log, world)
-        dp_train_s = time.perf_counter() - t0
         two = tar_params(os.path.join("ckpt", "dp2", f"{DP_STEPS:06d}.tar"))
         per_rank = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
         # ranks print at once, so a line may run into another rank's output
@@ -1946,13 +1649,10 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
         d_one, d_two = abs_diffs(b["params"], a["params"]), abs_diffs(two, a["params"])
 
         result = os.path.join("ckpt", "dp2", "test_images_scene", "metrics.txt")
-        t0 = time.perf_counter()
         test_ranks = torchrun(out, ["test", *cli_common(tmp, seed, "dp2")], log, world)
-        dp_test_s = time.perf_counter() - t0
         sharded = read_metrics(result)
-        with CliProbe() as single, contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log):
             cli.main("scannet", ["test", *cli_common(tmp, seed, "dp2")])
-            torch.cuda.synchronize()
         single_metrics = read_metrics(result)
 
         rays_per_rank = -(-H * W // world)
@@ -2000,14 +1700,7 @@ def phase_dp(tmp: str, seed: int, world: int = 2) -> dict:
                               max_abs_spread_1_vs_1=held["first_grads"]["spread"],
                               max_abs_grad=a["grads"].abs().max().item(),
                               tol=held["first_grads"]["tol"]),
-             ms_per_step=dict(one_rank=[statistics.median(a["step_ms"]),
-                                        statistics.median(b["step_ms"])],
-                              per_rank=[statistics.median(r["step_ms"]) for r in ranks],
-                              per_rank_host=[statistics.median(r["host_ms"][1:]) for r in ranks]),
-             train_command_s=dp_train_s, test_command_s=dp_test_s,
              graphs=dict(ranks=[r["graphs"] for r in ranks], one_rank=one_graphs),
-             s_per_view=dict(sharded=[statistics.median(r["view_s"]) for r in test_ranks],
-                             one_rank=statistics.median(single.view_s)),
              launches=dict(train=[r["launches"] for r in ranks],
                            test=[r["launches"] for r in test_ranks]),
              metrics=dict(sharded=sharded, one_rank=single_metrics), checks=checks)
@@ -2026,7 +1719,7 @@ def tp_run(scene: SceneTensors, seed: int, fused: bool, steps: int, grid=None) -
     """``steps`` train steps at the reference defaults on ``make_scene(seed)``'s
     ``scene`` through ``make_train_step(ranks=grid)``, on a state from
     ``create_train_state(grid=grid)`` (``use_fused=False``: the plain MLP,
-    column-parallel on a grid): the losses, each step's ms and launches, the
+    column-parallel on a grid): the losses, each step's launches, the
     first step's grads as applied and the params after, whole (gathered over
     the model group); on a grid also the replicated tensors and what this
     rank holds."""
@@ -2043,20 +1736,17 @@ def tp_run(scene: SceneTensors, seed: int, fused: bool, steps: int, grid=None) -
             first.append(torch.cat([g.detach().flatten().cpu() for g in whole]))
         return apply(st, grads, g_scales, g_shifts, *args, **kwargs)
 
-    losses, ms, launches = [], [], []
+    losses, launches = [], []
     with mock.patch.object(train_step, "apply_grads", spy):
         for _ in range(steps):
-            torch.cuda.synchronize()
-            before, t0 = counts(), time.perf_counter()
+            before = counts()
             metrics = step_fn(state, scene, gen)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
             after = counts()
             launches.append({k: after[k] - before[k] for k in after})
             losses.append(float(metrics["loss"]))
     models = (("coarse", state.model_coarse), ("fine", state.model_fine))
     params = {f"{w}.{k}": v.cpu() for w, m in models for k, v in tp_mesh.gather_params(m).items()}
-    out = dict(losses=losses, ms=ms, launches=launches, grads=first[0], params=params,
+    out = dict(losses=losses, launches=launches, grads=first[0], params=params,
                graphs=dict(captures=step_fn.captures, replays=step_fn.replays))
     if grid is not None:
         dims = tp_mesh.nerf_dims(state)
@@ -2135,7 +1825,6 @@ def phase_tp(seed: int, world: int = 2) -> dict:
     against the plain 1-rank step. A data row's ranks hold bit-equal
     replicated tensors, and each rank 1/TP_N_MODEL of each sharded weight,
     bias and Adam moment."""
-    t_phase = time.perf_counter()
     scene = make_scene(seed)
     one = {name: [tp_run(scene, seed, fused, steps) for _ in range(2)]
            for name, fused, steps in (("fused", True, DP_STEPS), ("plain", False, TP_PLAIN_STEPS))}
@@ -2146,9 +1835,7 @@ def phase_tp(seed: int, world: int = 2) -> dict:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
                "--master_addr", "127.0.0.1", "--master_port", str(free_port()), SCRIPT,
                "--tp-worker", out, str(seed)]
-        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        command_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"tp: torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
                                f"{proc.stderr[-4000:]}")
@@ -2192,12 +1879,6 @@ def phase_tp(seed: int, world: int = 2) -> dict:
                      one_a=one["fused"][0]["losses"], one_b=one["fused"][1]["losses"],
                      plain=[r["plain"]["losses"] for r in ranks],
                      plain_one=[x["losses"] for x in one["plain"]]),
-         ms_per_step=dict(
-             per_rank=[statistics.median(r["fused"]["ms"][1:]) for r in ranks],
-             one_rank=[statistics.median(x["ms"][1:]) for x in one["fused"]],
-             first_step_per_rank=[r["fused"]["ms"][0] for r in ranks],
-             plain_per_rank=[r["plain"]["ms"] for r in ranks],
-             plain_one_rank=[x["ms"] for x in one["plain"]]),
          bytes_per_rank=dict(
              nerf_params_and_moments=[r["fused"]["held_bytes"] for r in ranks],
              whole=r0["fused"]["whole_bytes"],
@@ -2207,8 +1888,7 @@ def phase_tp(seed: int, world: int = 2) -> dict:
          launches=[r["fused"]["launches"] for r in ranks],
          graphs=dict(ranks=[{name: r[name]["graphs"] for name in want} for r in ranks],
                      one_rank={name: [x["graphs"] for x in one[name]] for name in one}),
-         peak_gb_per_rank=[r["plain"]["peak_gb"] for r in ranks],
-         command_s=command_s, phase_s=time.perf_counter() - t_phase, checks=checks)
+         peak_gb_per_rank=[r["plain"]["peak_gb"] for r in ranks], checks=checks)
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"tp: failed {bad}")
@@ -2227,17 +1907,11 @@ def spvcnn_depth(seed: int) -> np.ndarray:
     return depth
 
 
-class SpvcnnProbe:
-    """Times the classifier's parts with a synchronize around each call (so
-    only in a pass of its own): the kernel maps (kernel_map, sparse_unique)
-    apart from the gathers and products (_sparse_products), and
-    counts the voxel sites of each conv's output by its stride."""
+class SpvcnnSites:
+    """Counts the voxel sites of each conv's output by its stride."""
 
     def __init__(self):
-        self.map_ms, self.gemm_ms, self.sites = 0.0, 0.0, {}
-        self._patches = [mock.patch.object(spvcnn, name, self._timed(getattr(spvcnn, name), kind))
-                         for name, kind in (("kernel_map", "map"), ("sparse_unique", "map"),
-                                            ("_sparse_products", "gemm"))]
+        self.sites = {}
         conv = spvcnn.sparse_conv3d
 
         def counted(*args, **kwargs):
@@ -2245,30 +1919,14 @@ class SpvcnnProbe:
             self.sites[y.stride] = int(y.mask.sum())
             return y
 
-        self._patches.append(mock.patch.object(spvcnn, "sparse_conv3d", counted))
-
-    def _timed(self, fn, kind):
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) * 1e3
-            if kind == "map":
-                self.map_ms += dt
-            else:
-                self.gemm_ms += dt
-            return out
-        return wrapped
+        self._patch = mock.patch.object(spvcnn, "sparse_conv3d", counted)
 
     def __enter__(self):
-        for p in self._patches:
-            p.start()
+        self._patch.start()
         return self
 
     def __exit__(self, *exc):
-        for p in self._patches:
-            p.stop()
+        self._patch.stop()
 
 
 def spvcnn_on_cpu(x):
@@ -2300,10 +1958,8 @@ def phase_spvcnn(seed: int) -> dict:
     refine_focal with a 5-channel model and refine_shift with a 3-channel
     one (seeded weights, cr=1.0, pres = vres) on a seeded 468x624 depth map,
     on the card and on the CPU; their logits, each stage's output and the
-    pooled features held within SPVCNN_RTOL (the sites exactly); the
-    forward's ms (the kernel maps apart from the gathers and products in a
-    synchronized pass), peak GB and the voxel sites at each stride."""
-    t_phase = time.perf_counter()
+    pooled features held within SPVCNN_RTOL (the sites exactly); a
+    forward's peak GB and the voxel sites at each stride."""
     depth = spvcnn_depth(seed)
     u0, v0 = W / 2.0, H / 2.0
     res = {}
@@ -2332,14 +1988,12 @@ def phase_spvcnn(seed: int) -> dict:
                 return out
             return apply
 
-        values, secs = {}, {}
+        values = {}
         for dev, model in (("cuda", card_model), ("cpu", cpu_model)):
-            t0 = time.perf_counter()
             if name == "focal":
                 values[dev] = spvcnn.refine_focal(depth, SPVCNN_FOCAL, bound(model, dev), u0, v0)
             else:
                 values[dev] = spvcnn.refine_shift(depth, bound(model, dev), SPVCNN_FOCAL, u0, v0)
-            secs[dev] = time.perf_counter() - t0
         points, card_logit, card_taps = seen["cuda"][0]
         cpu_logit, cpu_taps = seen["cpu"][0][1:]
         err = (card_logit - cpu_logit).abs().max().item()
@@ -2347,29 +2001,17 @@ def phase_spvcnn(seed: int) -> dict:
         taps = {k: spvcnn_tap_err(card_taps[k], cpu_taps[k]) for k in cpu_taps}
         del seen, card_taps, cpu_taps
         pts = points.to("cuda")
-        with torch.no_grad():
-            card_model(pts)  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: card_model(pts), reps=SPVCNN_REPS, warmup=0)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            with SpvcnnProbe() as probe:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                card_model(pts)
-                torch.cuda.synchronize()
-                probed_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), SpvcnnSites() as probe:
+            card_model(pts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         res[name] = dict(channels=channels, valid_points=int(points.mask.sum()),
                          capacity=points.mask.numel(), value_card=values["cuda"],
                          value_cpu=values["cpu"], logit_card=card_logit.item(),
                          logit_cpu=cpu_logit.item(), abs_err=err, tol=tol, ok=err <= tol,
                          taps=taps,
-                         forward_ms=ms, probed_pass_ms=probed_ms, kernel_map_ms=probe.map_ms,
-                         gather_matmul_ms=probe.gemm_ms,
-                         other_ms=probed_ms - probe.map_ms - probe.gemm_ms,
                          sites_by_stride={str(k): v for k, v in sorted(probe.sites.items())},
-                         peak_gb=peak_gb, card_call_s=secs["cuda"], cpu_call_s=secs["cpu"],
-                         params=sum(p.numel() for p in cpu_model.parameters()))
+                         peak_gb=peak_gb, params=sum(p.numel() for p in cpu_model.parameters()))
         del card_model
         torch.cuda.empty_cache()
     checks = {f"{k} card logit within rtol of the CPU's": v["ok"] for k, v in res.items()}
@@ -2377,70 +2019,11 @@ def phase_spvcnn(seed: int) -> dict:
                    for k, v in res.items() for t, d in v["taps"].items()})
     checks["finite"] = all(math.isfinite(v["logit_card"]) for v in res.values())
     line("spvcnn", H=H, W=W, focal_px=SPVCNN_FOCAL, cr=1.0, rtol=SPVCNN_RTOL, **res,
-         phase_s=time.perf_counter() - t_phase, checks=checks)
+         checks=checks)
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"spvcnn: failed {bad}")
     return res
-
-
-def conv_linear_flops(model, x, z, shifts) -> int:
-    """Operations (2 per multiply-add) of every Conv2d and Linear in one
-    forward of ``model``, counted from their weights and output shapes."""
-    total = [0]
-
-    def count(mod, _inputs, out):
-        total[0] += 2 * mod.weight[0].numel() * out.numel()  # weight[0]: in/groups·kh·kw
-
-    hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    try:
-        with torch.inference_mode():
-            model(x, z, shifts)
-    finally:
-        for h in hooks:
-            h.remove()
-    return total[0]
-
-
-def prior_forward_ms(model, shifts, x, z, reps: int = 5) -> float:
-    with torch.inference_mode():
-        xb, zb = x.expand(z.shape[0], -1, -1, -1), z.to(x.dtype)
-        return cuda_ms(lambda: model(xb, zb, shifts), reps)
-
-
-class TimeProbe:
-    """Times each call of the functions ``names`` of ``module`` (in ``s``,
-    by name), without changing them; with ``sync`` each call is ended by a
-    synchronize, so its time is the device's too."""
-
-    def __init__(self, module, names, sync: bool = False):
-        self.s = {name: [] for name in names}
-        self._patches = [mock.patch.object(module, name, self._timed(getattr(module, name),
-                                                                     self.s[name], sync))
-                         for name in names]
-
-    @staticmethod
-    def _timed(fn, into, sync):
-        def wrapped(*args, **kwargs):
-            if sync:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            into.append(time.perf_counter() - t0)
-            return out
-        return wrapped
-
-    def __enter__(self):
-        for p in self._patches:
-            p.start()
-        return self
-
-    def __exit__(self, *exc):
-        for p in self._patches:
-            p.stop()
 
 
 def prior_step_on(device, state: dict, shifts: dict, batch: dict, z, draws: dict,
@@ -2489,9 +2072,7 @@ def prior_step_check(ckpt: str, shifts: dict, examples: list, seed: int) -> dict
         batch = prior_train.batch_to_torch(batch, "cpu")
         z = torch.randn((1, PRIOR_D_LATENT), generator=gen)
         draws = prior_losses.draw_criterion(gen, batch, prior_losses.DEFAULT_LOSS_MODE)
-        t0 = time.perf_counter()
         cpu = prior_step_on("cpu", state, shifts, batch, z, draws)
-        cpu_s = time.perf_counter() - t0
         f64 = prior_step_on("cpu", state, shifts, batch, z, draws, torch.float64)
         card = prior_step_on("cuda", state, shifts, batch, z, draws)
         total = abs(cpu["losses"]["total_loss"])
@@ -2512,7 +2093,7 @@ def prior_step_check(ckpt: str, shifts: dict, examples: list, seed: int) -> dict
                          update_l2_f64=float(u64.norm()), update_max_f64=float(u64.abs().max()),
                          distance_from_f64=dist,
                          card_vs_cpu_update_max=float((u_card - u_cpu).abs().max()),
-                         bn_max_rel_err=bn_err, cpu_step_s=cpu_s,
+                         bn_max_rel_err=bn_err,
                          ok=bool(loss_err <= PRIOR_STEP_LOSS_REL and bn_err <= PRIOR_STEP_BN_REL
                                  and dist["card_f32"]["l2"]
                                  <= PRIOR_STEP_WITNESS_RATIO * dist["cpu_f32"]["l2"]))
@@ -2533,14 +2114,9 @@ def phase_prior_train(tmp: str, seed: int) -> dict:
     must write the 4 encoder AdaIn means and variances, finite, cache an
     (18, 32) finite z, log finite losses at every step and write
     ``epoch0_step0.pth``; one SGD step on the card must equal the CPU's
-    (``prior_step_check``). Times: the AdaIn init per view, the recache per
-    image, a B=4 step in f32, f32 with TF32 and bf16 beside 3× the forward's
-    conv+linear FLOP bound, the criterion's forward+backward against the
-    model's. Returns the checkpoint and the AdaIn statistics for the prior
-    phase to dump from."""
+    (``prior_step_check``). Returns the checkpoint and the AdaIn statistics
+    for the prior phase to dump from."""
     log = io.StringIO()
-    dev = torch.device("cuda")
-    t_phase = time.perf_counter()
     try:
         write_scene(tmp, seed)
         scene_dir = os.path.join(tmp, "scene")
@@ -2549,12 +2125,9 @@ def phase_prior_train(tmp: str, seed: int) -> dict:
         log_dir, jsonl = os.path.join(tmp, "prior_log"), os.path.join(tmp, "prior_losses.jsonl")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        names = ("compute_adain_stats", "recache_z", "train_step")
-        with TimeProbe(prior_train, names, sync=True) as probe, contextlib.redirect_stdout(log):
-            t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
             out = prior_train.main([*common, "--log_dir", log_dir, *PRIOR_TRAIN_ARGS,
                                     "--precision", "highest", "--loss_jsonl", jsonl])
-            command_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
         mv_path = os.path.join(log_dir, "mean_var_adain.npy")
@@ -2571,8 +2144,7 @@ def phase_prior_train(tmp: str, seed: int) -> dict:
         ckpt = os.path.join(log_dir, "epoch0_step0.pth")
 
         log16, jsonl16 = os.path.join(tmp, "prior_log_bf16"), os.path.join(tmp, "bf16.jsonl")
-        with TimeProbe(prior_train, ("train_step",), sync=True) as probe16, \
-                contextlib.redirect_stdout(log):
+        with contextlib.redirect_stdout(log):
             prior_train.main([*common, "--log_dir", log16, "--epochs", "1", "--batchsize", "4",
                               "--adain_subset", "4", "--debug_mode", "--compute_dtype",
                               "bfloat16", "--loss_jsonl", jsonl16])
@@ -2580,41 +2152,13 @@ def phase_prior_train(tmp: str, seed: int) -> dict:
         bf16_ok = len(recs16) == n_steps and all(math.isfinite(v) for r in recs16
                                                  for v in r.values())
 
-        # a B=4 step, timed alone in each mode, on the trained model
-        model, shifts = out["model"], out["shifts"]
+        shifts = out["shifts"]
         ds = prior_data.FinetuneDataset(os.path.join(scene_dir, "train"))
-        examples = [ds[i] for i in range(4)]
-        batch = prior_train.batch_to_torch(prior_data.collate(examples), dev)
-        z4 = torch.from_numpy(z[:4]).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        mode = prior_losses.DEFAULT_LOSS_MODE
-        draws = prior_losses.draw_criterion(gen, batch, mode)
-        tc = prior_train.PriorTrainConfig()
-        opt = prior_train.PriorOptimizer(model, tc)
-        step_ms = {}
-        for name, precision, dtype in (("f32", "highest", None), ("f32_tf32", "high", None),
-                                       ("bf16", "highest", "bfloat16")):
-            tcm = dataclasses.replace(tc, compute_dtype=dtype)
-            with prior_dump.matmul_precision(precision):
-                step_ms[name] = cuda_ms(lambda: prior_train.train_step(
-                    model, opt, shifts, batch, z4, draws, tcm), reps=3)
-        model.train()
-        with prior_dump.matmul_precision("highest"):
-            with torch.no_grad():
-                depth = prior_model.prior_apply(model, shifts, batch["rgb"], z4, train=True)
-            leaf = depth.float().requires_grad_(True)
-            criterion_ms = cuda_ms(lambda: prior_losses.criterion(
-                leaf, batch, mode, draws)[1].mean().backward(), reps=3)
-            model_ms = cuda_ms(lambda: prior_model.prior_apply(
-                model, shifts, batch["rgb"], z4, train=True).mean().backward(), reps=3)
-            draw_ms = cuda_ms(lambda: prior_losses.draw_criterion(gen, batch, mode), reps=3)
-        model.eval()
-        step_flops = 3 * conv_linear_flops(model, batch["rgb"], z4, shifts)
-        del model, opt, out, leaf, depth
+        examples = [ds[i] for i in range(2)]
+        del out
         torch.cuda.empty_cache()
 
         check = prior_step_check(ckpt, {k: v.cpu() for k, v in shifts.items()}, examples, seed)
-        adain_s, recache_s = probe.s["compute_adain_stats"][0], probe.s["recache_z"][0]
         checks = {"AdaIn statistics: 4 finite means and variances": mv_ok,
                   "cached z (18, 32), finite": z.shape == (N_TRAIN, PRIOR_D_LATENT)
                   and bool(np.isfinite(z).all()),
@@ -2625,17 +2169,8 @@ def phase_prior_train(tmp: str, seed: int) -> dict:
                   "card step = CPU step (planes, quality 3)": check["planes_q3"]["ok"],
                   "PWN edge and plane losses active": check["edge_and_plane_active"]}
         line("prior_train", backbone="resnext101_32x8d", version="v2", d_latent=PRIOR_D_LATENT,
-             crop=448, views=N_TRAIN, argv=PRIOR_TRAIN_ARGS, command_s=command_s,
-             adain_s_per_view=adain_s / N_TRAIN, recache_s_per_image=recache_s / N_TRAIN,
-             recache_z=20, cli_step_ms=[1e3 * v for v in probe.s["train_step"]],
-             cli_bf16_step_ms=[1e3 * v for v in probe16.s["train_step"]],
-             losses_first_step=recs[0], step_ms_b4=step_ms, criterion_fwd_bwd_ms_b4=criterion_ms,
-             model_fwd_bwd_ms_b4=model_ms, criterion_draw_ms_b4=draw_ms,
-             step_gflop_b4=step_flops / 1e9,
-             step_bound_ms=dict(f32=step_flops / PEAK_F32 * 1e3,
-                                tf32=step_flops / PEAK_TF32 * 1e3,
-                                bf16=step_flops / PEAK_BF16 * 1e3),
-             peak_gb=peak_gb, phase_s=time.perf_counter() - t_phase, card_vs_cpu_step=check,
+             crop=448, views=N_TRAIN, argv=PRIOR_TRAIN_ARGS, recache_z=20,
+             losses_first_step=recs[0], peak_gb=peak_gb, card_vs_cpu_step=check,
              tol=dict(loss_rel_to_total=PRIOR_STEP_LOSS_REL, bn_rel=PRIOR_STEP_BN_REL,
                       update_witness_ratio=PRIOR_STEP_WITNESS_RATIO), checks=checks)
         bad = [name for name, ok in checks.items() if not ok]
@@ -2654,8 +2189,8 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
     ``mean_var_adain.npy``, loaded as a user's checkpoint is (strictly, and
     bit-equal to the file); on the first view of the scene at the 448 crop:
     the card's f32 forward (TF32 off) against the CPU's on 2 z, and bf16
-    against f32 on the card on 20 z, with forward times in bf16, f32 with
-    TF32 and f32; then ``python -m scade_tpu_torch.prior.dump`` as a user runs
+    against f32 on the card on 20 z (and bf16 in channels_last against
+    NCHW); then ``python -m scade_tpu_torch.prior.dump`` as a user runs
     it (K=20 in one set of 20, bf16, the defaults) on the scene's 18 train
     views, which must write 360 finite (468, 624) float32 files; then the
     CLI's ``train`` for 5 steps on those files, K1 and K2 at 2 launches a
@@ -2666,7 +2201,6 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
     try:
         scene_dir = os.path.join(tmp, "scene")
         ckpt_path, mean_var = trained["ckpt"], trained["mean_var"]
-        t0 = time.perf_counter()
         saved = torch.load(ckpt_path)["model_state_dict"]
         cpu_model = prior_dump.build_prior(ckpt_path, device="cpu")
         loaded = cpu_model.state_dict()
@@ -2674,7 +2208,6 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
                                                              for k, v in loaded.items())
         n_params = sum(p.numel() for p in cpu_model.parameters())
         del saved, loaded
-        setup_s = time.perf_counter() - t0
         shifts_cpu = prior_model.load_mean_var_adain(mean_var)
         shifts = {k: v.to(dev) for k, v in shifts_cpu.items()}
 
@@ -2685,52 +2218,36 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
         z20 = torch.randn((PRIOR_K, PRIOR_D_LATENT), generator=zgen, device=dev)
 
         # card f32 (TF32 off) against the CPU's f32, one image, 2 z
-        t0 = time.perf_counter()
         cpu_out = prior_dump.infer(cpu_model, shifts_cpu, x_cpu, z20[:2].cpu())
-        cpu_s = time.perf_counter() - t0
         del cpu_model
         model = prior_dump.build_prior(ckpt_path, device=dev)
         with prior_dump.matmul_precision("highest"):
             card_out = prior_dump.infer(model, shifts, x, z20[:2])
             f32_20 = prior_dump.infer(model, shifts, x, z20)
-            f32_ms = prior_forward_ms(model, shifts, x, z20)
-        with prior_dump.matmul_precision("high"):
-            tf32_ms = prior_forward_ms(model, shifts, x, z20)
         f32_err = float(np.abs(card_out - cpu_out).max())
         f32_scale = float(np.abs(cpu_out).max())
-        flops = conv_linear_flops(model, x.expand(PRIOR_K, -1, -1, -1), z20, shifts)
 
         # bf16 against f32 on the card, 20 z
         bf16_shifts = {k: v.bfloat16() for k, v in shifts.items()}
         model.bfloat16()
         bf16_20 = prior_dump.infer(model, bf16_shifts, x.bfloat16(), z20)
-        bf16_ms = prior_forward_ms(model, bf16_shifts, x.bfloat16(), z20)
         bf16_rel = float(np.abs(bf16_20 - f32_20).mean() / np.abs(f32_20).mean())
-        # where the bf16 forward's time goes: the encoder alone (the rest is
-        # the decoder), and the whole in channels_last, which the port does
-        # not use (a layout to weigh against NCHW)
-        encoder_ms = prior_forward_ms(model.encoder_modules, bf16_shifts, x.bfloat16(), z20)
-        encoder_flops = conv_linear_flops(model.encoder_modules, x.expand(PRIOR_K, -1, -1, -1)
-                                          .bfloat16(), z20.bfloat16(), bf16_shifts)
+        # the same in channels_last, a layout the port does not use
         model.to(memory_format=torch.channels_last)
         x_cl = x.bfloat16().contiguous(memory_format=torch.channels_last)
         cl_rel = float(np.abs(prior_dump.infer(model, bf16_shifts, x_cl, z20) - bf16_20).mean()
                        / np.abs(bf16_20).mean())
-        cl_ms = prior_forward_ms(model, bf16_shifts, x_cl, z20)
         del model
         torch.cuda.empty_cache()
 
         # the dump as a user runs it
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with TimeProbe(prior_dump, ("infer", "write_view", "recover_metric_depth")) as probe, \
-                contextlib.redirect_stdout(log):
-            t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
             out_dir = prior_dump.main(["--scene_dir", scene_dir, "--ckpt", ckpt_path,
                                        "--mean_var", mean_var, "--dump_dir", "prior",
                                        "--num_hypothesis", str(PRIOR_K), "--mini_batch_size",
                                        str(PRIOR_K), "--seed_num", str(seed)])
-            dump_s = time.perf_counter() - t0
         dump_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         names = sorted(os.listdir(out_dir))
         expect = sorted(f"{i}_{k}.npy" for i in range(N_TRAIN) for k in range(PRIOR_K))
@@ -2743,16 +2260,12 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
         # prior → NeRF: the CLI trains on what the dump wrote
         os.chdir(tmp)
         with CliProbe() as train, contextlib.redirect_stdout(log):
-            torch.cuda.synchronize()
             reset_counts()
-            t0 = time.perf_counter()
             cli.main("scannet", ["train", "--data_dir", tmp, "--scene_id", "scene",
                                  "--ckpt_dir", "ckpt", "--expname", "prior", "--cimle_dir", "prior",
                                  "--num_hypothesis", str(PRIOR_K), "--seed", str(seed),
                                  "--num_iterations", str(PRIOR_NERF_STEPS), "--i_weights",
                                  "1000000", "--i_img", "1000000", "--i_print", "1000000"])
-            torch.cuda.synchronize()
-            nerf_s = time.perf_counter() - t0
         losses = [float(v) for v in train.losses]
         steps_ok = len(train.step_launches) == PRIOR_NERF_STEPS and all(
             d == per_step() for d in train.step_launches)
@@ -2764,30 +2277,15 @@ def phase_prior(tmp: str, seed: int, trained: dict) -> dict:
                   "finite forward": bool(np.isfinite(f32_20).all() and np.isfinite(bf16_20).all()),
                   "360 hypothesis files": files_ok,
                   "NeRF launches per step": steps_ok, "NeRF finite loss": finite}
-        infer_s, write_s = probe.s["infer"], probe.s["write_view"]
-        n_views = len(write_s)
         line("prior", backbone="resnext101_32x8d", version="v2", d_latent=PRIOR_D_LATENT,
-             crop=448, K=PRIOR_K, params=n_params, setup_s=setup_s,
+             crop=448, K=PRIOR_K, params=n_params,
              f32_vs_cpu=dict(max_abs_err=f32_err, max_abs_out=f32_scale,
-                             tol_rel_to_max=PRIOR_F32_TOL, z=2, cpu_s=cpu_s),
+                             tol_rel_to_max=PRIOR_F32_TOL, z=2),
              bf16_vs_f32=dict(mean_rel_diff=bf16_rel, tol=PRIOR_BF16_REL, z=PRIOR_K),
-             forward_ms_per_image=dict(bf16=bf16_ms, f32_tf32=tf32_ms, f32=f32_ms),
-             bf16_encoder_ms_per_image=encoder_ms, bf16_channels_last_ms_per_image=cl_ms,
              bf16_channels_last_mean_rel_diff=cl_rel,
-             gflop_per_image=flops / 1e9, encoder_gflop_per_image=encoder_flops / 1e9,
-             bound_ms=dict(bf16=flops / PEAK_BF16 * 1e3, tf32=flops / PEAK_TF32 * 1e3,
-                           f32=flops / PEAK_F32 * 1e3),
-             dump=dict(command_s=dump_s, views=n_views, files=len(names),
-                       forward_s_per_view=sum(infer_s) / n_views,
-                       forward_s_first_view=infer_s[0],
-                       forward_s_per_view_after_first=statistics.median(infer_s[1:]),
-                       host_s_per_view=sum(write_s) / n_views,
-                       host_s_per_view_median=statistics.median(write_s),
-                       polyfit_s_per_view=sum(probe.s["recover_metric_depth"]) / n_views,
-                       peak_gb=dump_peak_gb, hypothesis_range=hyp_range),
-             nerf=dict(steps=PRIOR_NERF_STEPS, command_s=nerf_s, loss_first=losses[0],
-                       loss_last=losses[-1], launches_per_step=train.step_launches,
-                       scene_load_s=train.load_s[0]),
+             dump=dict(files=len(names), peak_gb=dump_peak_gb, hypothesis_range=hyp_range),
+             nerf=dict(steps=PRIOR_NERF_STEPS, loss_first=losses[0], loss_last=losses[-1],
+                       launches_per_step=train.step_launches),
              checks=checks)
         bad = [name for name, ok in checks.items() if not ok]
         if bad:
@@ -2864,9 +2362,8 @@ def pretrain_argv(root: str, seed: int) -> list:
 
 def prior_dp_worker(case_path: str, out_dir: str) -> int:
     """One rank of the prior's 2-rank check (torchrun): its block of the
-    case's global batch through ``train_step(ranks=...)``, then
-    PRETRAIN_DP_TIMED more steps timed. Every rank saves its state after the
-    first step, its losses and step times."""
+    case's global batch through ``train_step(ranks=...)``. Every rank saves
+    its state after the step, its losses and its memory peak."""
     from scade_tpu_torch.parallel import dist
 
     ranks, device, backend = dist.init_from_env("cuda")
@@ -2890,15 +2387,7 @@ def prior_dp_worker(case_path: str, out_dir: str) -> int:
                        losses={k: float(v) for k, v in losses.items()})
             torch.save({k: v.detach().cpu() for k, v in m.state_dict().items()},
                        os.path.join(out_dir, f"state{ranks.rank}.pt"))
-            step_ms = []
-            for _ in range(PRETRAIN_DP_TIMED):
-                dist.barrier()
-                torch.cuda.synchronize(device)
-                t0 = time.perf_counter()
-                prior_train.train_step(m, opt, shifts, batch, z, draws, tc, ranks)
-                torch.cuda.synchronize(device)
-                step_ms.append(1e3 * (time.perf_counter() - t0))
-        rec.update(step_ms=step_ms, peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        rec.update(peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
         with open(os.path.join(out_dir, f"rank{ranks.rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -2925,9 +2414,7 @@ def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
            "--master_addr", "127.0.0.1", "--master_port", str(free_port()), SCRIPT,
            "--prior-dp-worker", case_path, out_dir]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    ranks_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"prior_dp: torchrun exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
@@ -2953,7 +2440,6 @@ def phase_prior_dp(tmp: str, seed: int, world: int, batch: dict, state: dict,
               "update within the f64 witness": dist_f64["ranks"]
               <= PRIOR_STEP_WITNESS_RATIO * dist_f64["one_rank"]}
     line("prior_dp", world=world, backend=recs[0]["backend"], global_batch=B, crop=448,
-         ranks_command_s=ranks_s, ms_per_step_per_rank={r["rank"]: r["step_ms"] for r in recs},
          peak_gb_per_rank={r["rank"]: r["peak_gb"] for r in recs},
          losses_ranks=recs[0]["losses"], losses_one_rank=one["losses"],
          losses_f64=f64["losses"], loss_max_err_rel_to_total=loss_err, bn_max_rel_err=bn_err,
@@ -2980,16 +2466,14 @@ def baseline_check(batch: dict, seed: int) -> dict:
     """``DepthModelBaseline`` (ResNeXt101-32x8d + AuxiNetV2) at the 448 crop
     from seeded weights: the card's f32 forward (TF32 off) against the
     CPU's on one image, both outputs; then a train-mode forward and backward
-    of ``criterion`` + ``auxi_criterion`` at B=4, its ms and peak GB."""
+    of ``criterion`` + ``auxi_criterion`` at B=4, its peak GB."""
     cfg = prior_model.backbone_config("resnext101_32x8d", d_latent=PRIOR_D_LATENT)
     m = prior_model.init_weights_(prior_model.DepthModelBaseline(cfg, "v2"),
                                   torch.Generator().manual_seed(seed))
     x = batch["rgb"][:1]
     m.eval()
-    t0 = time.perf_counter()
     with torch.no_grad():
         cpu = m(x)
-    cpu_s = time.perf_counter() - t0
     m.cuda()
     dev = {k: v.cuda() for k, v in batch.items()}
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3001,24 +2485,18 @@ def baseline_check(batch: dict, seed: int) -> dict:
         errs = {name: float((c.cpu() - r).abs().max() / r.abs().max())
                 for name, c, r in zip(("depth", "auxi"), card, cpu)}
         m.train()
-
-        def step():
-            depth, auxi = m(dev["rgb"])
-            _, total = prior_losses.criterion(depth, dev, AUXI_LOSS_MODE, draws)
-            _, auxi_total = prior_losses.auxi_criterion(auxi, dev, AUXI_LOSS_MODE, auxi_draws)
-            (total + auxi_total).mean().backward()
-            return total, auxi_total
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        total, auxi_total = step()
-        ms = cuda_ms(step, reps=3)
+        depth, auxi = m(dev["rgb"])
+        _, total = prior_losses.criterion(depth, dev, AUXI_LOSS_MODE, draws)
+        _, auxi_total = prior_losses.auxi_criterion(auxi, dev, AUXI_LOSS_MODE, auxi_draws)
+        (total + auxi_total).mean().backward()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = bool(torch.isfinite(total).all() and torch.isfinite(auxi_total).all()
                   and all(torch.isfinite(p.grad).all() for p in m.parameters()))
     total, auxi_total = total.detach(), auxi_total.detach()
-    return dict(params=sum(p.numel() for p in m.parameters()), f32_vs_cpu_rel=errs, cpu_s=cpu_s,
-                train_fwd_bwd_ms_b4=ms, peak_gb=peak_gb, finite=finite,
+    return dict(params=sum(p.numel() for p in m.parameters()), f32_vs_cpu_rel=errs,
+                peak_gb=peak_gb, finite=finite,
                 loss_b4=float(total.mean()), auxi_loss_b4=float(auxi_total.mean()))
 
 
@@ -3031,32 +2509,20 @@ def phase_prior_pretrain(tmp: str, seed: int) -> dict:
     init over 8 examples, a recache of 20 z for each of the 16 examples of
     the sampler's order, 4 SGD steps at batch 4. It must write finite AdaIn
     statistics, cache a finite (16, 32) z, log 4 finite steps and a
-    checkpoint, and visit the sources round-robin. Times: the command, each
-    step, the recache per image, the host's read per example (decode and
-    resize, ``MultiDataset.load_test_data_v2``) against a step; peak GB.
-    Then, from the checkpoint it wrote, the 2-rank check (``phase_prior_dp``)
-    and the baseline model (``baseline_check``)."""
+    checkpoint, and visit the sources round-robin; its peak GB. Then, from
+    the checkpoint it wrote, the 2-rank check (``phase_prior_dp``) and the
+    baseline model (``baseline_check``)."""
     log = io.StringIO()
-    t_phase = time.perf_counter()
     try:
-        from scade_tpu_torch.prior import multi_data
-
         root = os.path.join(tmp, "corpus")
-        t0 = time.perf_counter()
         corpus = write_corpus(root, seed)
-        corpus_s = time.perf_counter() - t0
         log_dir, jsonl = os.path.join(tmp, "pretrain_log"), os.path.join(tmp, "pretrain.jsonl")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        names = ("compute_adain_stats", "recache_z", "train_step")
-        with TimeProbe(prior_train, names, sync=True) as probe, \
-                TimeProbe(multi_data.MultiDataset, ("load_test_data_v2",)) as reads, \
-                contextlib.redirect_stdout(log):
-            t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
             out = prior_train.main([*pretrain_argv(root, seed), "--log_dir", log_dir,
                                     *PRETRAIN_ARGS, "--precision", "highest",
                                     "--loss_jsonl", jsonl])
-            command_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n = 2 * int(max(v[0] for v in PRETRAIN_CORPUS.values()) * PRETRAIN_SAMPLE_RATIO)
         steps = n // 4
@@ -3075,8 +2541,6 @@ def phase_prior_pretrain(tmp: str, seed: int) -> dict:
                   "checkpoint written": os.path.exists(ckpt),
                   "round-robin order": order[0::2] == ["taskonomy"] * (n // 2)
                   and order[1::2] == ["diml_ganet"] * (n // 2)}
-        read_s = reads.s["load_test_data_v2"]
-        step_ms = [1e3 * v for v in probe.s["train_step"]]
         del out
         torch.cuda.empty_cache()
 
@@ -3094,17 +2558,9 @@ def phase_prior_pretrain(tmp: str, seed: int) -> dict:
         line("prior_pretrain", backbone="resnext101_32x8d", version="v2",
              d_latent=PRIOR_D_LATENT, crop=448, corpus={k: list(v) for k, v in
                                                         PRETRAIN_CORPUS.items()},
-             corpus_bytes=corpus["bytes"], corpus_write_s=corpus_s, examples=n,
-             argv=PRETRAIN_ARGS, command_s=command_s, cli_step_ms=step_ms,
-             ms_per_step_median=statistics.median(step_ms),
-             adain_s_per_image=probe.s["compute_adain_stats"][0] / 8,
-             recache_s_per_image=probe.s["recache_z"][0] / n,
-             host_read_s_per_example=dict(median=statistics.median(read_s), max=max(read_s),
-                                          n=len(read_s)),
-             host_read_s_per_step_b4=4 * statistics.median(read_s), peak_gb=peak_gb,
+             corpus_bytes=corpus["bytes"], examples=n, argv=PRETRAIN_ARGS, peak_gb=peak_gb,
              first_batches_sources=[order[i:i + 4] for i in (0, 4)], sources_visited=counts,
-             losses_first_step=recs[0], baseline=base,
-             phase_s=time.perf_counter() - t_phase, checks=checks)
+             losses_first_step=recs[0], baseline=base, checks=checks)
         bad = [name for name, ok in checks.items() if not ok]
         if bad:
             raise RuntimeError(f"prior_pretrain: failed {bad}")
@@ -3143,24 +2599,18 @@ def phase_quality(seeds=QUALITY_SEEDS, dtypes=("float32", "bfloat16"), extra=(),
                     "--expname", name, "--seed", str(sd), "--compute_dtype", dt, *QUALITY_ARGS,
                     *extra]
             with CliProbe() as train, contextlib.redirect_stdout(log):
-                torch.cuda.synchronize()
                 reset_counts()
-                t0 = time.perf_counter()
                 cli.main("scannet", ["train", *argv])
-                torch.cuda.synchronize()
-                train_s = time.perf_counter() - t0
             result = os.path.join("ckpt", name, "test_images_scene", "metrics.txt")
             train_metrics = read_metrics(result)
             with contextlib.redirect_stdout(log):
                 cli.main("scannet", ["test", *argv])
-                torch.cuda.synchronize()
             m = read_metrics(result)
             losses = torch.stack([torch.as_tensor(x).float().cpu() for x in train.losses])
             steps = len(train.step_launches)
             res[name] = dict(
                 dtype=dt, seed=sd, steps=steps, psnr=m["psnr"], psnr0=m["psnr0"],
-                depth_rmse=m["depth_rmse"], ssim=m["ssim"], train_command_s=train_s,
-                loop_ms_per_step_median=statistics.median(train.step_ms()),
+                depth_rmse=m["depth_rmse"], ssim=m["ssim"],
                 loss_first=losses[0].item(), loss_last=losses[-1].item(),
                 finite=bool(torch.isfinite(losses).all()),
                 launches_per_step_ok=all(d == per_step() for d in train.step_launches),
@@ -3215,12 +2665,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--steps", type=int, default=20)
-    parser.add_argument("--k1-only", action="store_true",
-                        help="run the device and k1 phases only and print no result line: "
-                             "for comparing K1 builds of two trees on one card")
-    parser.add_argument("--k2-only", action="store_true",
-                        help="run the device and k2 phases only and print no result line: "
-                             "for comparing K2 builds of two trees on one card")
     parser.add_argument("--prior-only", action="store_true",
                         help="run the device phase, then the prior_train, prior and "
                              "prior_pretrain phases, and print no result line: for the prior's "
@@ -3283,23 +2727,16 @@ def main() -> int:
     if args.quality_only:
         phase_quality()
         return 0
-    if args.k2_only:
-        phase_k2(gen)
-        return 0
     k1 = phase_k1(gen, dev["sass"])
-    if args.k1_only:
-        return 0
     k2 = phase_k2(gen)
-    state, scene, rc, tc, train_launches, train_median_ms = phase_train(args.seed, args.steps)
-    phase_split(state, scene, rc, tc, args.seed)
+    state, scene, tc, train_launches = phase_train(args.seed, args.steps)
     phase_repro(state, scene, tc, args.seed)
-    phase_check(state, scene, rc)
     phase_render(state, scene)
     del state, scene
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="scade_cli_")
     try:
-        cli_launches, test_metrics = phase_cli(tmp, args.seed, train_median_ms)
+        cli_launches, test_metrics = phase_cli(tmp, args.seed)
         torch.cuda.empty_cache()
         phase_tasks(tmp, args.seed, test_metrics)
         torch.cuda.empty_cache()
@@ -3322,31 +2759,26 @@ def main() -> int:
     kernels = [
         dict(name="fused_mlp", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
              replaces="scade_tpu/ops/fused_mlp.py:187", launches=cli_launches["k1"],
-             max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
-             bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None, check="pass",
-             launches_train_phase=train_launches["k1"], launches_tp_phase=tp_launches["k1"],
-             max_abs_err_bf16=k1["max_abs_err_bf16"], fma_bound_ms=k1["fma_bound_ms"]),
+             max_abs_err=k1["max_abs_err"], bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+             check="pass", launches_train_phase=train_launches["k1"],
+             launches_tp_phase=tp_launches["k1"], max_abs_err_bf16=k1["max_abs_err_bf16"]),
         dict(name="fused_mlp_bwd", route="cuda", source="scade_tpu_torch/csrc/fused_mlp.cu",
              replaces="scade_tpu/ops/fused_mlp.py:265", launches=train_launches["k1_bwd"],
-             max_rel_err_vs_f64=k1["backward"]["max_rel_err_vs_f64"], ms=k1["backward"]["ms"],
-             plain_ms=k1["backward"]["plain_ms"], bound_ms=k1["backward"]["bound_ms"],
-             bound_by="operations", library_ms=None, check="pass"),
+             max_rel_err_vs_f64=k1["backward"]["max_rel_err_vs_f64"],
+             bound_ms=k1["backward"]["bound_ms"], bound_by="operations", check="pass"),
         dict(name="sample_pdf", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:110", launches=cli_launches["k2"],
-             max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None, check="pass",
-             launches_train_phase=train_launches["k2"], launches_tp_phase=tp_launches["k2"],
-             wall_ms=k2["wall_ms"]),
+             max_abs_err=k2["max_abs_err"], bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+             check="pass", launches_train_phase=train_launches["k2"],
+             launches_tp_phase=tp_launches["k2"]),
         dict(name="sample_pdf_bwd", route="cuda",
              source="scade_tpu_torch/csrc/fused_sampling.cu",
              replaces="scade_tpu/ops/fused_sampling.py:172", launches=cli_launches["k2_bwd"],
-             max_abs_err=k2["bwd"]["max_abs_err"], ms=k2["bwd"]["ms"],
-             plain_ms=k2["bwd"]["plain_ms"], bound_ms=k2["bwd"]["bound_ms"],
-             bound_by=k2["bwd"]["bound_by"], library_ms=None, check="pass",
+             max_abs_err=k2["bwd"]["max_abs_err"], bound_ms=k2["bwd"]["bound_ms"],
+             bound_by=k2["bwd"]["bound_by"], check="pass",
              launches_train_phase=train_launches["k2_bwd"],
-             launches_tp_phase=tp_launches["k2_bwd"], wall_ms=k2["bwd"]["wall_ms"],
-             ms_peaked=k2["bwd"]["ms_peaked"],
+             launches_tp_phase=tp_launches["k2_bwd"],
              rel_err_vs_autograd_dyadic=k2["bwd"]["rel_err_vs_autograd_dyadic"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

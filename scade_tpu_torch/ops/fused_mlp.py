@@ -14,14 +14,16 @@ image the products read.
 kernel (``fused_mlp_cuda``) and raises if the launch fails; only for CPU
 tensors does it take the plain version (``fused_mlp_plain``), which is also
 the oracle the kernel is held against. Its backward gives the gradients of
-the f32 network in either mode. On the card, where pts and dirs want no
-gradient (no train path asks for one), it runs K1's backward kernels
+the f32 network in either mode. On the card it runs K1's backward kernels
 (``fused_mlp_backward_cuda``): the network recomputed per tile on chip, as
 the JAX package's custom VJP recomputes, and its weight and bias gradients
 in 3xTF32, reading the weights also in a transposed packed layout
 (``pack_layout_t``), with the ReLU decisions of the plain version in f32
-where 3xTF32 may take another. Otherwise, and on the CPU, it recomputes
-through the plain version in f32 and takes ``torch.autograd.grad`` of it.
+where 3xTF32 may take another. They give no gradient for pts or dirs, so
+on the card a backward that wants one raises (the renderer sends the one
+pass whose points carry a gradient, single-network mode's second while
+training, to the plain MLP). On the CPU it recomputes through the plain
+version in f32 and takes ``torch.autograd.grad`` of it.
 """
 
 from __future__ import annotations
@@ -462,9 +464,10 @@ class _FusedMLP(torch.autograd.Function):
     def backward(ctx, g):
         pts, dirs, *weights = ctx.saved_tensors
         needs = ctx.needs_input_grad[2:]
-        if pts.device.type == "cuda" and not (needs[0] or needs[1]):
-            # the kernels give every weight's gradient; the points' would
-            # need the delta of the embedding, which no train path asks for
+        if pts.device.type == "cuda":
+            if needs[0] or needs[1]:
+                raise ValueError("fused_nerf_apply: K1's backward gives the weights' and biases' "
+                                 "gradients only, not those of pts or dirs")
             with span("scade.k1.recompute"):
                 grads = fused_mlp_backward_cuda(weights, ctx.cfg, pts, dirs, g.contiguous())
             return (None, None, None, None,
@@ -479,6 +482,7 @@ class _FusedMLP(torch.autograd.Function):
 
 def fused_nerf_apply(model, cfg: FusedCfg, pts, dirs, compute_dtype=torch.float32):
     """(N, 3) normalized pts + (N, 3) dirs → (N, 4) raw, differentiable in
-    pts, dirs and the model's parameters."""
+    the model's parameters, and on the CPU also in pts and dirs (on the card
+    a backward that wants their gradient raises)."""
     return _FusedMLP.apply(cfg, compute_dtype, pts.contiguous(), dirs.contiguous(),
                            *flat_weights(model))

@@ -10,7 +10,9 @@ Per ray batch:
 
 The MLP passes go through kernel K1 (``ops/fused_mlp.py``) and the inverse-CDF
 lookups through kernel K2 (``ops/fused_sampling.py``) when ``use_fused`` and
-``fused_sampling`` are on, which they are by default. Randomness comes from
+``fused_sampling`` are on, which they are by default. This module alone
+decides where a kernel runs; ``on_kernels`` tells the train step whether all
+of a step does. Randomness comes from
 an explicit ``torch.Generator``; ``generator=None`` is the deterministic
 (test-time) path.
 
@@ -144,15 +146,42 @@ class SceneVars(NamedTuple):
     embedded_cam: torch.Tensor  # (input_ch_cam,) or (0,)
 
 
+def _mlp_passes(rc: RenderConfig, grad: bool) -> list:
+    """A render's MLP passes, each as (network, whether its points carry a
+    gradient). Single-network mode (``n_importance == 0``) queries the
+    coarse network again at points drawn from its own weights, which carry
+    one where ``grad``; the fine pass's draws are detached."""
+    if rc.n_importance == 0:
+        return [(rc.nerf_coarse, False), (rc.nerf_coarse, grad)]
+    return [(rc.nerf_coarse, False), (rc.nerf_fine, False)]
+
+
+def _on_k1(nerf_cfg: NeRFConfig, rc: RenderConfig, pts_grad: bool) -> bool:
+    """Whether a pass runs its MLP on K1: kernels on, view directions on, an
+    architecture the kernel covers (no camera latent, the standard
+    encodings), and points that carry no gradient (K1's backward gives the
+    weights' only). A pass on K1 whose points do carry one raises on the
+    card at its backward."""
+    return (rc.use_fused and rc.use_viewdirs and not pts_grad
+            and supports_fusion(nerf_cfg, rc.embed_pos, rc.embed_dirs, rc.input_ch_cam))
+
+
+def on_kernels(rc: RenderConfig) -> bool:
+    """Whether a train step runs every MLP pass on K1 and every inverse-CDF
+    draw on K2: false in single-network mode, whose second pass is plain
+    while training."""
+    return rc.fused_sampling and all(_on_k1(c, rc, g) for c, g in _mlp_passes(rc, grad=True))
+
+
 def _query_network(model: NeRF, nerf_cfg: NeRFConfig, rc: RenderConfig, pts, viewdirs,
-                   scene: SceneVars):
-    """Embed points (+ dirs + camera latent) and run the MLP.
-    pts: (R, S, 3); viewdirs: (R, 3) or None. Returns raw (R, S, 4)."""
+                   scene: SceneVars, pts_grad: bool):
+    """Embed points (+ dirs + camera latent) and run the MLP, on K1 where
+    ``_on_k1``. pts: (R, S, 3); viewdirs: (R, 3) or None; pts_grad: from
+    ``_mlp_passes``. Returns raw (R, S, 4)."""
     x = (pts - scene.bb_center) * scene.bb_scale
     R, S = pts.shape[:2]
 
-    if (rc.use_fused and viewdirs is not None
-            and supports_fusion(nerf_cfg, rc.embed_pos, rc.embed_dirs, rc.input_ch_cam)):
+    if _on_k1(nerf_cfg, rc, pts_grad):
         dirs_flat = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
         fcfg = FusedCfg(nerf_cfg.D, nerf_cfg.W, rc.embed_pos.num_freqs, nerf_cfg.skips)
         raw = fused_nerf_apply(model, fcfg, x.reshape(-1, 3), dirs_flat,
@@ -218,6 +247,8 @@ def render_rays(
 
     det = (not rc.perturb) or generator is None
     _sample_pdf = fused_sample_pdf if rc.fused_sampling else sample_pdf
+    (coarse_cfg, coarse_grad), (second_cfg, second_grad) = _mlp_passes(
+        rc, torch.is_grad_enabled())
 
     # --- coarse pass -------------------------------------------------------
     z_vals = stratified_z_vals(near, far, rc.n_samples, rc.lindisp)
@@ -226,7 +257,7 @@ def render_rays(
             torch.rand((n_draw, rc.n_samples), generator=generator, device=dev)))
 
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = _query_network(scene.model_coarse, rc.nerf_coarse, rc, pts, viewdirs, scene)
+    raw = _query_network(scene.model_coarse, coarse_cfg, rc, pts, viewdirs, scene, coarse_grad)
     noise0 = _density_noise(generator, n_draw, raw.shape[1], rc.raw_noise_std, dev, mine)
     rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(raw, z_vals, rays_d, noise0)
 
@@ -240,7 +271,8 @@ def render_rays(
         z_vals_2 = _sample_pdf(z_mid, weights[..., 1:-1], u1)
 
         pts2 = rays_o[..., None, :] + rays_d[..., None, :] * z_vals_2[..., :, None]
-        raw2 = _query_network(scene.model_coarse, rc.nerf_coarse, rc, pts2, viewdirs, scene)
+        raw2 = _query_network(scene.model_coarse, second_cfg, rc, pts2, viewdirs, scene,
+                              second_grad)
         z_all, raw_all = merge_sorted(z_vals, z_vals_2, raw, raw2)
         noise1 = _density_noise(generator, n_draw, raw_all.shape[1], rc.raw_noise_std, dev, mine)
         rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(
@@ -276,7 +308,7 @@ def render_rays(
 
     z_all = merge_sorted(z_vals, z_samples)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
-    raw = _query_network(scene.model_fine, rc.nerf_fine, rc, pts, viewdirs, scene)
+    raw = _query_network(scene.model_fine, second_cfg, rc, pts, viewdirs, scene, second_grad)
     noise1 = _density_noise(generator, n_draw, raw.shape[1], rc.raw_noise_std, dev, mine)
     rgb_map, disp_map, acc_map, weights, depth_map = raw2outputs(raw, z_all, rays_d, noise1)
 

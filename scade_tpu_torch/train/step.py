@@ -63,13 +63,13 @@ import torch
 
 from scade_tpu_torch.models.nerf import NeRF
 from scade_tpu_torch import _kernels
-from scade_tpu_torch.ops import fused_mlp
 from scade_tpu_torch.ops.arith import f32, fma
 from scade_tpu_torch.ops.losses import compute_space_carving_loss, img2mse, mse2psnr
 from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.parallel import mesh
 from scade_tpu_torch.parallel.dist import Ranks
-from scade_tpu_torch.render.renderer import RayBlock, RenderConfig, SceneVars, render_rays
+from scade_tpu_torch.render.renderer import (RayBlock, RenderConfig, SceneVars, on_kernels,
+                                             render_rays)
 from scade_tpu_torch.utils.profiling import span
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # torch.optim.Adam and optax.adam defaults
@@ -499,14 +499,11 @@ def apply_grads(state: TrainState, grads, g_scales, g_shifts, tc: TrainConfig,
 
 
 def capturable(rc: RenderConfig, tc: TrainConfig) -> bool:
-    """Whether the step on one card can be captured as CUDA graphs: K1 runs
-    both networks and K2 the draws (the plain MLP's positional encoding
-    copies its frequencies from the host), and the pixel law draws without
-    a host read (``choice``'s ``randperm`` does not)."""
-    nets = [c for c in (rc.nerf_coarse, rc.nerf_fine) if c is not None]
-    return (rc.use_fused and rc.fused_sampling and tc.pixel_sampling != "choice"
-            and all(fused_mlp.supports_fusion(c, rc.embed_pos, rc.embed_dirs, rc.input_ch_cam)
-                    for c in nets))
+    """Whether the step on one card can be captured as CUDA graphs: the
+    renderer runs all of it on the kernels (the plain MLP's positional
+    encoding copies its frequencies from the host), and the pixel law draws
+    without a host read (``choice``'s ``randperm`` does not)."""
+    return on_kernels(rc) and tc.pixel_sampling != "choice"
 
 
 def capture_key(state: TrainState, scene: SceneTensors, generator, tc: TrainConfig) -> tuple:

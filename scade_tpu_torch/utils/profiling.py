@@ -20,10 +20,9 @@ The spans the port opens, and where:
 ``scade.train.backward``    ``torch.autograd.grad`` (over ranks, the sums)
 ``scade.train.adam``        both Adam updates and the step's metrics
 ``scade.k1.recompute``      K1's backward: its kernels
-                            (``fused_mlp_backward_cuda``), or the plain
-                            network and its ``autograd.grad`` where pts or
-                            dirs want a gradient and on the CPU (on
-                            autograd's device thread on the card)
+                            (``fused_mlp_backward_cuda``) on the card, on
+                            autograd's device thread; the plain network and
+                            its ``autograd.grad`` on the CPU
 ``scade.prior.step``        ``prior/train.py::train_step``
 ``scade.prior.forward``     ``prior_apply`` (and the depth's cast to f32)
 ``scade.prior.criterion``   ``L.criterion`` and the batch's mean total

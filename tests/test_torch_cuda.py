@@ -33,9 +33,9 @@ between the two, so one tensor's distance is noise (2.4 and 11.7 times the
 plain version's seen), but the worst tensor's is not (0.97-1.01 times):
 every tensor's distance to the f64 gradient must stay within twice the
 plain version's worst plus 1e-5 of its largest entry, and within 1e-3 of
-the plain gradient at 300 points. With pts asking for
-a gradient, the backward is the plain recompute's bit for bit. K2 bit for
-bit the plain
+the plain gradient at 300 points. With pts or dirs asking for a
+gradient, the backward raises: its kernels give the weights' gradients
+only. K2 bit for bit the plain
 sample_pdf (cdf_kernel_order is the plain version's CDF law) on random and
 dyadic weights and on opaque rows (``opaque``), where an ulp of the CDF
 decides the 1e-5 guard; its strided and zero-stride inputs exactly as their
@@ -48,10 +48,13 @@ random, opaque and peaked ones 1e-4 of it (peaked: ~87 terms an entry,
 whose sums in two orders differ by up to 1.8e-6 of the largest entry;
 grad_w = (grad_pdf - d) / sum(w') is a difference of terms that can be far
 larger than itself). A resumed CLI run
-on the card equals a straight one leaf by leaf. The renderer as in
-chip_smoke.py. Three eager train steps at the ScanNet cell's shapes (8x256
-nets, 64 + 128 samples, 1,024 rays, K=20, 20 views at 468x624, both kernels
-on, f32) run under ``torch.cuda.set_sync_debug_mode("error")``, so with no host
+on the card equals a straight one leaf by leaf. render_rays with both
+kernels against the plain path, at a small width and at the ScanNet
+cell's (8x256, multires 9, 64 + 128 samples; nets after 20 train steps on
+the cell's views, 512 rays of a held-out 468x624 view); rays that carry a
+gradient make the fine pass's K1 backward raise. Three eager train
+steps at the ScanNet cell's shapes (8x256 nets, 64 + 128 samples, 1,024
+rays, K=20, 20 views at 468x624, both kernels on, f32) run under ``torch.cuda.set_sync_debug_mode("error")``, so with no host
 read, and leave parameters and Adam moments bit-equal to the same steps
 through the 0-d image index they replace
 (``tests/test_torch_sync_free_step.py`` keeps its expressions) and
@@ -73,6 +76,7 @@ from scade_tpu_torch.models.nerf import NeRF, NeRFConfig
 from scade_tpu_torch.ops import fused_mlp, fused_sampling, sampling
 from scade_tpu_torch.ops import volume
 from scade_tpu_torch.ops.embedding import Embedder, positional_encoding
+from scade_tpu_torch.ops.rays import get_rays
 from scade_tpu_torch.render import renderer
 from scade_tpu_torch.train import step
 
@@ -314,15 +318,13 @@ def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
         assert max(errs(plain_grads(g0), exact, g0)) > K1_BWD_TOL
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    # pts asking for a gradient: the plain recompute, as autograd takes it
-    pts_g = pts.clone().requires_grad_()
+    # pts or dirs asking for a gradient: the kernels give the weights' only
     backward = fused_mlp.fused_mlp_backward_cuda.launches
-    out = fused_mlp.fused_nerf_apply(model, cfg, pts_g, dirs, dtype)
-    via = torch.autograd.grad(out, [pts_g, *params], g)
+    for x, d in ((pts.clone().requires_grad_(), dirs), (pts, dirs.clone().requires_grad_())):
+        out = fused_mlp.fused_nerf_apply(model, cfg, x, d, dtype)
+        with pytest.raises(ValueError, match="not those of pts or dirs"):
+            torch.autograd.grad(out, params, g)
     assert fused_mlp.fused_mlp_backward_cuda.launches == backward
-    direct = torch.autograd.grad(fused_mlp.fused_mlp_plain(params, cfg, pts_g, dirs),
-                                 [pts_g, *params], g)
-    assert all(torch.equal(a, b) for a, b in zip(via, direct))
 
 
 @pytest.mark.cuda
@@ -481,23 +483,70 @@ def test_cli_resume_on_the_card_is_bit_equal(cuda, tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_render_rays_kernels_match_plain(cuda):
+@pytest.mark.parametrize("case", ["small", "full_width"])
+def test_render_rays_kernels_match_plain(cuda, case):
+    """small: fresh 64-wide nets on rays near the origin. full_width: the
+    ScanNet cell's nets (8x256, multires 9, 64 + 128 samples) after 20
+    train steps on the cell's views, 512 rays drawn from a held-out 468x624
+    view, the scene's near, far and box."""
     gen = torch.Generator().manual_seed(2)
-    kw = dict(multires=4, netwidth=64, netwidth_fine=64, n_samples=8, n_importance=16)
-    rc = renderer.make_render_config(**kw).test_mode()
+    if case == "small":
+        kw = dict(multires=4, netwidth=64, netwidth_fine=64, n_samples=8, n_importance=16)
+        rc = renderer.make_render_config(**kw)
+        scene = renderer.SceneVars(NeRF(rc.nerf_coarse, generator=gen).to(cuda),
+                                   NeRF(rc.nerf_fine, generator=gen).to(cuda),
+                                   torch.zeros(3, device=cuda), torch.tensor(0.5, device=cuda),
+                                   torch.zeros(0, device=cuda))
+        ro = (torch.randn(64, 3, generator=gen) * 0.1).to(cuda)
+        rd = torch.nn.functional.normalize(torch.randn(64, 3, generator=gen), dim=-1).to(cuda)
+        near, far = 0.1, 6.0
+    else:
+        sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+        from host_syncs import H, N_TRAIN, N_VAL, W, ring_scene  # the cell's views, on the card
+
+        kw = {}
+        rc = renderer.make_render_config()
+        views = ring_scene(cuda, seed=4)
+        state = step.create_train_state(0, rc, step.TrainConfig(), n_images=N_TRAIN + N_VAL)
+        step_fn = step.make_train_step(rc, step.TrainConfig(), H, W, N_TRAIN)
+        train_gen = torch.Generator(device=cuda).manual_seed(0)
+        for _ in range(20):
+            step_fn(state, views, train_gen)
+        rays_o, rays_d = get_rays(H, W, views.intrinsics[N_TRAIN], views.poses[N_TRAIN])
+        idx = torch.randperm(H * W, generator=gen)[:512].to(cuda)
+        ro, rd = rays_o.reshape(-1, 3)[idx], rays_d.reshape(-1, 3)[idx]
+        scene = renderer.SceneVars(state.model_coarse, state.model_fine, views.bb_center,
+                                   views.bb_scale, torch.zeros(0, device=cuda))
+        near, far = float(views.near), float(views.far)
     plain = renderer.make_render_config(**kw, use_fused=False, fused_sampling=False).test_mode()
+    with torch.no_grad():
+        a = renderer.render_rays(scene, rc.test_mode(), ro, rd, near, far)
+        b = renderer.render_rays(scene, plain, ro, rd, near, far)
+    assert (a["rgb_map"] - b["rgb_map"]).abs().max().item() <= 1e-3
+    assert (a["depth_map"] - b["depth_map"]).abs().max().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_a_fine_pass_on_points_that_want_a_gradient_raises(cuda):
+    """The renderer sends the fine pass to K1 whatever its points want, so
+    rays that carry a gradient reach K1's backward, which raises rather
+    than fall back to the plain network."""
+    gen = torch.Generator().manual_seed(3)
+    rc = renderer.make_render_config(multires=4, netwidth=64, netwidth_fine=64, n_samples=8,
+                                     n_importance=16)
     scene = renderer.SceneVars(NeRF(rc.nerf_coarse, generator=gen).to(cuda),
                                NeRF(rc.nerf_fine, generator=gen).to(cuda),
                                torch.zeros(3, device=cuda), torch.tensor(0.5, device=cuda),
                                torch.zeros(0, device=cuda))
-    ro = (torch.randn(64, 3, generator=gen) * 0.1).to(cuda)
+    ro = (torch.randn(64, 3, generator=gen) * 0.1).to(cuda).requires_grad_()
     rd = torch.nn.functional.normalize(torch.randn(64, 3, generator=gen), dim=-1).to(cuda)
-    with torch.no_grad():
-        a = renderer.render_rays(scene, rc, ro, rd, 0.1, 6.0)
-        b = renderer.render_rays(scene, plain, ro, rd, 0.1, 6.0)
-    assert (a["rgb_map"] - b["rgb_map"]).abs().max().item() <= 1e-3
-    assert (a["depth_map"] - b["depth_map"]).abs().max().item() <= 1e-2
-
+    launches = fused_mlp.fused_mlp_cuda.launches
+    out = renderer.render_rays(scene, rc, ro, rd, 0.1, 6.0)
+    assert fused_mlp.fused_mlp_cuda.launches - launches == 2  # both passes on K1
+    backward = fused_mlp.fused_mlp_backward_cuda.launches
+    with pytest.raises(ValueError, match="not those of pts or dirs"):
+        torch.autograd.grad(out["rgb_map"].sum(), ro)  # through the fine pass alone
+    assert fused_mlp.fused_mlp_backward_cuda.launches == backward
 
 
 @pytest.mark.cuda

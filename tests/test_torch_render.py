@@ -113,6 +113,48 @@ def test_single_network_branch_matches_jax():
     compare(ours, ref, dict(TOL, weights=1e-3, pred_hyp=3e-2))
 
 
+def k1_calls(monkeypatch) -> list:
+    """Whether the points wanted a gradient, for each call of K1's wrapper
+    the renderer makes."""
+    wants_grad = []
+    k1 = renderer.fused_nerf_apply
+    monkeypatch.setattr(renderer, "fused_nerf_apply", lambda model, cfg, pts, *args: (
+        wants_grad.append(pts.requires_grad) or k1(model, cfg, pts, *args)))
+    return wants_grad
+
+
+def test_single_network_second_pass_runs_k1_only_on_points_without_a_gradient(monkeypatch):
+    """Single-network mode queries the MLP a second time at points drawn
+    from the coarse weights. While training they carry a gradient, which
+    K1's backward does not give, so that pass runs the plain MLP, and the
+    renderer says the step is not all on the kernels."""
+    _, _, rc, scene = scenes(n_importance=0)
+    wants_grad = k1_calls(monkeypatch)
+    ro, rd = (torch.from_numpy(x) for x in rays(seed=3))
+    assert renderer.render_rays(scene, rc, ro, rd, 0.1, 10.0)["rgb_map"].requires_grad
+    assert wants_grad == [False]
+    with torch.no_grad():
+        renderer.render_rays(scene, rc, ro, rd, 0.1, 10.0)
+    assert wants_grad == [False] * 3
+    assert not renderer.on_kernels(rc)
+    assert renderer.on_kernels(renderer.make_render_config(**SMALL, device="cpu"))
+
+
+def test_coarse_and_fine_passes_run_k1_whatever_their_points_want(monkeypatch):
+    """Only single-network mode's second pass leaves K1. Rays that carry a
+    gradient still send both passes of the default mode to K1, whose
+    backward raises for it on the card (tests/test_torch_cuda.py) and, on
+    the CPU, gives the plain recompute's."""
+    _, _, rc, scene = scenes()
+    wants_grad = k1_calls(monkeypatch)
+    ro, rd = (torch.from_numpy(x) for x in rays(seed=3))
+    ro.requires_grad_()
+    out = renderer.render_rays(scene, rc, ro, rd, 0.1, 10.0)
+    assert wants_grad == [True, True]
+    (g,) = torch.autograd.grad(out["rgb_map"].sum(), ro)  # the fine pass alone
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
 def test_render_golden():
     g = load_golden("render_rays_e2e")
     rc = renderer.make_render_config(multires=4, netwidth=64, netwidth_fine=64, n_samples=8,

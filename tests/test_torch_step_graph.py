@@ -8,8 +8,9 @@ feed's writer writes ``staircase_lr`` and the bias corrections of
 captured into a graph counts nowhere at the capture and once at each
 replay (``_kernels.tally``); ``capture_key`` is a pure function of the
 tensors and the step's host decisions; off the card, with ranks, with the
-``choice`` pixel law or where K1 does not run both networks (a camera
-latent) the step runs eagerly and counts no capture.
+``choice`` pixel law or where the renderer does not run the whole step on
+the kernels (``renderer.on_kernels``: the plain path, a camera latent) the
+step runs eagerly and counts no capture.
 
 On the card (skipped without one), at the ScanNet cell's shapes (8x256
 nets, 64 + 128 samples, 1,024 rays, K=20, 20 views at 468x624, both kernels
@@ -237,14 +238,22 @@ def test_step_runs_eagerly_off_the_card_and_where_not_capturable():
     rc, tc, scene, state = tiny()
     from test_torch_sync_free_step import H, N_TRAIN, W
 
-    assert step.capturable(rc, tc)
+    assert renderer.on_kernels(rc) and step.capturable(rc, tc)
     assert not step.capturable(rc, step.TrainConfig(pixel_sampling="choice"))
     plain = renderer.make_render_config(**SMALL, use_fused=False, fused_sampling=False,
                                         device="cpu")
-    assert not step.capturable(plain, tc)
+    assert not renderer.on_kernels(plain) and not step.capturable(plain, tc)
     # a camera latent: the plain MLP, whose encoding copies from the host
     latent = renderer.make_render_config(**SMALL, input_ch_cam=4, device="cpu")
-    assert latent.use_fused and not step.capturable(latent, tc)
+    assert latent.use_fused and not renderer.on_kernels(latent)
+    assert not step.capturable(latent, tc)
+    # single-network mode: its second pass is plain while training, and the
+    # plain recompute's encoding copies from the host
+    single = renderer.make_render_config(**dict(SMALL, n_importance=0), device="cpu")
+    assert not step.capturable(single, tc)
+    # the step asks the renderer: with a pixel law that allows graphs, they agree
+    assert all(step.capturable(c, tc) == renderer.on_kernels(c)
+               for c in (rc, plain, latent, single))
     assert not step.make_train_step(latent, tc, H, W, N_TRAIN).graphed
     assert not step.make_train_step(rc, tc, H, W, N_TRAIN, ranks=Ranks(0, 2)).graphed
     step_fn = step.make_train_step(rc, tc, H, W, N_TRAIN)
