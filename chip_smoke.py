@@ -19,10 +19,13 @@ line per phase:
           1,048,576 and 3,145,728, each in f32 and bf16; in bf16 also the
           plain version against itself with its sums reordered, and both
           against the same function summed in f64; the weight bytes each
-          launch reads from L2 and its bound; K1's backward kernels at a
-          train step's two shapes (f32): bit-equal over two calls, held to
-          the plain f32 gradient and, where no ReLU decision is near 0, to
-          the f64 one, which a TF32-products control misses
+          launch reads from L2 and its bound; at a train step's two shapes
+          in f32 also the forward that keeps (its out within the bound and
+          bit for bit the plain launch's, counted in fused_mlp_cuda.kept),
+          and K1's backward kernels from what it kept: bit-equal over two
+          calls and to the call that launches the keeping forward itself,
+          held to the plain f32 gradient and, where no ReLU decision is
+          near 0, to the f64 one, which a TF32-products control misses
   k2      the sampling kernel (CDF build + inverse-CDF lookup) at 1,024,
           16,384 and 65,536 rays, M=63 and M=191, S=128, with draws of
           exactly 0 and 1: bit for bit the plain sample_pdf (the same CDF
@@ -42,10 +45,15 @@ line per phase:
           second step on, the step replays its CUDA graphs; one more
           replayed step under the profiler, whose counted launches must be
           the kernels the card ran (2 K1, 2 K2, 1 K2 backward, 2 K1
-          backward, by name in the trace)
+          backward, by name in the trace); both K1 forwards of every step,
+          replayed ones too, keep what K1's backward reads
+          (fused_mlp_cuda.kept, 2 a step)
   repro   three train steps (eager, captured, replayed) twice from one
           state and seed through the CUDA graphs and once op by op, f32 and
           bf16: every parameter and Adam moment and the losses bit-equal;
+          one eager step of each under the profiler, its counted launches
+          the kernels the card ran (bf16: 4 K1 forwards, its backward
+          launching the keeping f32 forward; 2 kept in either);
           the ops that torch.use_deterministic_algorithms warns about in
           the step
   render  a full 468x624 val view through render_image, f32 and bf16
@@ -387,18 +395,20 @@ def k1_tensor_core_instructions() -> dict:
 
 
 def k1_ptxas() -> dict:
-    """Registers, stack and spills of each K1 instantiation (the forward's
-    and the backward's delta, fix-up and dW kernels), from the build log,
+    """Registers, stack and spills of each K1 instantiation (the forward's,
+    the f32 forward's that keeps for the backward, and the backward's delta,
+    fix-up and dW kernels), from the build log,
     and any warning ptxas gave (a setmaxnreg it ignored, wgmma products it
     serialized). Raises if the log names no instantiation of the kernel."""
     res, name, warnings = {}, None, []
     for text in (_kernels.BUILD / "fused_mlp.log").read_text().splitlines():
-        m = re.search(r"fused_mlp_kernelI(13__nv_bfloat16|f)Li(\d+)E", text)
+        m = re.search(r"fused_mlp_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E", text)
         b = re.search(r"k1_backward_(delta|fix|dw)_kernelILi(\d+)E", text)
         if "warning" in text.lower() or "Performance Loss" in text:
             warnings.append(text.strip())
         if "Function properties for" in text and m:
-            name = f"{'bf16' if m.group(1) != 'f' else 'f32'}_W{m.group(2)}"
+            kind = ("bf16" if m.group(1) != "f" else "f32") + ("_keep" if m.group(3) == "1" else "")
+            name = f"{kind}_W{m.group(2)}"
             res[name] = {}
         elif "Function properties for" in text and b:
             name = f"bwd_{b.group(1)}_W{b.group(2)}"
@@ -408,7 +418,7 @@ def k1_ptxas() -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", text)):
             res[name]["registers"] = int(m.group(1))
             name = None
-    want = {f"{t}_W{w}" for t in ("bf16", "f32", "bwd_delta", "bwd_fix", "bwd_dw")
+    want = {f"{t}_W{w}" for t in ("bf16", "f32", "f32_keep", "bwd_delta", "bwd_fix", "bwd_dw")
             for w in (64, 128, 256)}
     if set(res) != want or not all("registers" in r for r in res.values()):
         raise RuntimeError(f"k1_ptxas: the build log names {sorted(res)}, expected {sorted(want)}")
@@ -479,9 +489,12 @@ def bf16_agrees(kernel: dict, reordered: dict, kernel_exact: dict, plain_exact: 
 def phase_k1(gen: torch.Generator, sass: dict) -> dict:
     """K1 through its wrapper, ``fused_nerf_apply``, at every shape the main
     path launches it with: a train step's coarse and fine passes and a full
-    render chunk's, in f32 and bf16, each against the plain version. Bounds:
-    bf16 at the tensor cores' bf16 rate; f32 at their TF32 rate for the
-    three products 3xTF32 takes."""
+    render chunk's, in f32 and bf16, each against the plain version. At a
+    train step's shapes in f32 also the forward that keeps (counted in
+    ``fused_mlp_cuda.kept``): its out against the plain version and bit for
+    bit the plain launch's, and its state into K1's backward
+    (``k1_backward``). Bounds: bf16 at the tensor cores' bf16 rate; f32 at
+    their TF32 rate for the three products 3xTF32 takes."""
     dev = torch.device("cuda")
     rc, tc = make_render_config(), TrainConfig()
     nc = rc.nerf_coarse
@@ -527,6 +540,16 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
                                      entry["kernel_vs_exact"], entry["plain_vs_exact"])
                     del other, exact
                 ok = ok and bool(torch.isfinite(got).all())
+                if dt == torch.float32 and key.startswith("train"):
+                    kept = fused_mlp.fused_mlp_cuda.kept
+                    kept_out, state = fused_mlp.fused_mlp_cuda(weights, cfg, pts, dirs, keep=True)
+                    keep = dict(max_abs_err=point_errors(kept_out, ref)["max"],
+                                bit_equal=torch.equal(kept_out, got),
+                                counted=fused_mlp.fused_mlp_cuda.kept == kept + 1)
+                    entry["keep"] = keep
+                    ok = (ok and keep["max_abs_err"] <= K1_TOL and keep["bit_equal"]
+                          and keep["counted"])
+                    del kept_out
                 del got, ref
             flops = flop_per_point * n
             nbytes = n * (6 + 4) * 4 + n_params * (2 if dt == torch.bfloat16 else 4)
@@ -540,10 +563,10 @@ def phase_k1(gen: torch.Generator, sass: dict) -> dict:
             entry["l2_weight_bytes"] = tiles * (staged + heads)
             entry["l2_weight_bytes_per_point"] = entry["l2_weight_bytes"] / n
             res[f"{key}_{dname}"] = entry
+        if key.startswith("train"):
+            res[f"{key}_backward"] = k1_backward(model, cfg, pts, dirs, state, gen)
+            del state
         del pts, dirs
-        torch.cuda.empty_cache()
-    for key in ("train_coarse", "train_fine"):
-        res[f"{key}_backward"] = k1_backward(model, cfg, launches[key], gen)
         torch.cuda.empty_cache()
     line("k1", D=nc.D, W=nc.W, F=rc.embed_pos.num_freqs, mflop_per_point=flop_per_point / 1e6,
          tol=dict(f32=K1_TOL, bf16=dict(point=K1_TOL, share_slack=K1_BF16_SHARE_SLACK,
@@ -598,22 +621,32 @@ def relu_near_zero(weights, cfg, pts, dirs, margin: float) -> torch.Tensor:
     return near
 
 
-def k1_backward(model, cfg, n: int, gen: torch.Generator) -> dict:
-    """K1's backward kernels (fused_mlp_backward_cuda) at n points: two calls
-    bit-equal, held to the plain f32 gradient (K1_BWD_PLAIN_TOL) and, away
+def k1_backward(model, cfg, pts, dirs, state, gen: torch.Generator) -> dict:
+    """K1's backward kernels (fused_mlp_backward_cuda) at pts and dirs, from
+    the ``state`` the keeping forward left there, as a train step takes
+    them: two calls bit-equal, and bit-equal to the call that launches the
+    keeping forward itself (the only one of the three with a forward
+    launch); held to the plain f32 gradient (K1_BWD_PLAIN_TOL) and, away
     from ReLU decisions near 0, to the f64 one (K1_BWD_TOL), as a
     TF32-products control is not; the bound: k1_backward_macs in 3xTF32 at
     the TF32 rate."""
     dev = torch.device("cuda")
-    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(dev)
-    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(dev)
+    n = pts.shape[0]
     g = torch.randn(n, 4, generator=gen).to(dev)
     weights = [w.detach() for w in fused_mlp.flat_weights(model)]
-    before = fused_mlp.fused_mlp_backward_cuda.launches
-    got = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
-    again = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
-    counted = fused_mlp.fused_mlp_backward_cuda.launches - before == 2
+
+    def launched():
+        return fused_mlp.fused_mlp_cuda.launches, fused_mlp.fused_mlp_backward_cuda.launches
+
+    forward, backward = launched()
+    got = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g, state)
+    again = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g, state)
+    counted = launched() == (forward, backward + 2)
+    recomputed = fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
+    counted = counted and launched() == (forward + 1, backward + 3)
     bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    recompute_bit_equal = all(torch.equal(a, b) for a, b in zip(got, recomputed))
+    del recomputed
     leaves = [w.clone().requires_grad_() for w in weights]
 
     def plain(g=g, dt=torch.float32):
@@ -630,15 +663,16 @@ def k1_backward(model, cfg, n: int, gen: torch.Generator) -> dict:
     near = relu_near_zero(weights, cfg, pts, dirs, K1_BWD_MARGIN)
     g0 = g.masked_fill(near[:, None], 0.0)
     exact = plain(g0, torch.float64)
-    vs_f64 = rel(fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g0), exact, g0)
+    vs_f64 = rel(fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g0, state), exact, g0)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         control = rel(plain(g0), exact, g0)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    ok = (counted and bit_equal and vs_plain <= K1_BWD_PLAIN_TOL and vs_f64 <= K1_BWD_TOL
-          and control > K1_BWD_TOL)
-    return dict(points=n, ok=ok, bit_equal=bit_equal, launches_counted=counted,
+    ok = (counted and bit_equal and recompute_bit_equal and vs_plain <= K1_BWD_PLAIN_TOL
+          and vs_f64 <= K1_BWD_TOL and control > K1_BWD_TOL)
+    return dict(points=n, ok=ok, bit_equal=bit_equal, recompute_bit_equal=recompute_bit_equal,
+                launches_counted=counted,
                 max_rel_err_vs_plain=vs_plain, max_rel_err_vs_f64=vs_f64,
                 tf32_control_vs_f64=control, points_zeroed=near.float().mean().item(),
                 bound_ms=3 * 2 * k1_backward_macs(cfg) * n / PEAK_TF32 * 1e3,
@@ -912,6 +946,7 @@ def make_scene(seed: int) -> SceneTensors:
 
 def reset_counts() -> None:
     fused_mlp.fused_mlp_cuda.launches = 0
+    fused_mlp.fused_mlp_cuda.kept = 0
     fused_mlp.fused_mlp_backward_cuda.launches = 0
     fused_sampling.sample_pdf_cuda.launches = 0
     fused_sampling.sample_pdf_backward_cuda.launches = 0
@@ -954,7 +989,8 @@ def traced_launches(fn):
 
 
 def per_step(k1: int = 2) -> dict:
-    """A train step's launches: K1 twice (0 on the plain MLP), K2 at the
+    """A train step's launches: K1 twice (0 on the plain MLP; 4 in bf16,
+    whose backward launches the keeping f32 forward again), K2 at the
     importance and P_depth draws, K2's backward once (only the P_depth
     draws carry a gradient)."""
     return {"k1": k1, "k2": 2, "k2_bwd": 1}
@@ -983,14 +1019,19 @@ def phase_train(seed: int, steps: int):
     losses = torch.stack(losses).tolist()
     launches = counts()
     finite = all(math.isfinite(x) for x in losses)
-    # K1's backward kernels run once a network a step
+    # K1's backward kernels run once a network a step, from the state both
+    # forwards kept
     per_step_ok = (launches == {k: n * steps for k, n in per_step().items()}
-                   and fused_mlp.fused_mlp_backward_cuda.launches == 2 * steps)
+                   and fused_mlp.fused_mlp_backward_cuda.launches == 2 * steps
+                   and fused_mlp.fused_mlp_cuda.kept == 2 * steps)
     launches["k1_bwd"] = fused_mlp.fused_mlp_backward_cuda.launches
+    launches["k1_kept"] = fused_mlp.fused_mlp_cuda.kept
     # one more step, a replay, under the profiler: its counted launches
     # against the kernels the card ran
+    kept = fused_mlp.fused_mlp_cuda.kept
     _, counted, ran = traced_launches(lambda: step_fn(state, scene, gen))
-    replay_ok = (counted == ran == {**per_step(), "k1_bwd": 2}
+    counted["k1_kept"] = fused_mlp.fused_mlp_cuda.kept - kept
+    replay_ok = (counted == {**ran, "k1_kept": 2} and ran == {**per_step(), "k1_bwd": 2}
                  and (step_fn.captures, step_fn.replays) == (1, steps))
     line("train", steps=steps, n_rand=tc.n_rand, loss_first=losses[0], loss_last=losses[-1],
          finite=finite, graphs=dict(captures=step_fn.captures, replays=step_fn.replays),
@@ -1041,10 +1082,19 @@ def phase_repro(state, scene, tc, seed: int) -> None:
         rc = make_render_config(compute_dtype=dt)
         a, b = (repro_run(state, scene, rc, tc, seed) for _ in range(2))
         e = repro_run(state, scene, rc, tc, seed, eager=True)
+        # one eager step under the profiler: its counted launches against
+        # the kernels the card ran, and both K1 forwards that kept
+        kept = fused_mlp.fused_mlp_cuda.kept
+        _, counted, ran = traced_launches(lambda: make_train_step(rc, tc, H, W, N_TRAIN).eager(
+            copy.deepcopy(state), scene, torch.Generator(device="cuda").manual_seed(seed)))
+        counted["k1_kept"] = fused_mlp.fused_mlp_cuda.kept - kept
         res[name] = dict(
             losses_equal=a[1] == b[1] == e[1], graphs=[a[2], b[2]],
             differ=[n for n, x, y in zip(names, a[0], b[0]) if not torch.equal(x, y)],
-            differ_from_eager=[n for n, x, y in zip(names, a[0], e[0]) if not torch.equal(x, y)])
+            differ_from_eager=[n for n, x, y in zip(names, a[0], e[0]) if not torch.equal(x, y)],
+            eager_step=dict(counters=counted, device_kernels=ran),
+            eager_step_ok=(counted == {**ran, "k1_kept": 2}
+                           and ran == {**per_step(2 if dt == torch.float32 else 4), "k1_bwd": 2}))
     rc = make_render_config()
     step_fn = make_train_step(rc, tc, H, W, N_TRAIN).eager
     st = copy.deepcopy(state)
@@ -1060,7 +1110,8 @@ def phase_repro(state, scene, tc, seed: int) -> None:
             torch.use_deterministic_algorithms(False)
     warned = sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)})
     ok = all(r["losses_equal"] and not r["differ"] and not r["differ_from_eager"]
-             and r["graphs"] == [dict(captures=1, replays=2)] * 2 for r in res.values())
+             and r["graphs"] == [dict(captures=1, replays=2)] * 2 and r["eager_step_ok"]
+             for r in res.values())
     line("repro", **res, deterministic_algorithms_warnings=warned, ok=ok)
     if not ok:
         raise RuntimeError(f"repro: three steps from one state and seed differ between runs: {res}")

@@ -8,10 +8,11 @@ edited source is rebuilt and an unchanged one is loaded as it is. Nothing
 here runs at import time: the CPU tests import every module of the package
 on a machine without ``nvcc``.
 
-Each launcher counts its launches in its ``launches`` attribute
-(``count_launch``). A launch captured into a CUDA graph runs only when the
-graph replays, so it goes to the capture's ``tally`` instead, and the
-caller adds that tally at each replay (``count_replay``).
+Each launcher counts its launches in its ``launches`` attribute, and may
+keep other counters beside it (K1's ``kept``), through ``count_launch``. A
+launch captured into a CUDA graph runs only when the graph replays, so it
+goes to the capture's ``tally`` instead, and the caller adds that tally at
+each replay (``count_replay``).
 """
 
 from __future__ import annotations
@@ -109,21 +110,21 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} at launch")
 
 
-def count_launch(launcher) -> None:
-    """Counts a launch of ``launcher`` in its ``launches``; under a CUDA
-    graph's capture, where nothing runs, in the innermost open ``tally``
-    (or nowhere)."""
+def count_launch(launcher, counter: str = "launches") -> None:
+    """Adds one to ``launcher``'s attribute ``counter``; under a CUDA graph's
+    capture, where nothing runs, to the innermost open ``tally`` (or
+    nowhere)."""
     if torch.cuda.is_current_stream_capturing():
         if _tallies:
-            _tallies[-1].append(launcher)
+            _tallies[-1].append((launcher, counter))
     else:
-        launcher.launches += 1
+        setattr(launcher, counter, getattr(launcher, counter) + 1)
 
 
 @contextmanager
 def tally():
-    """Collects the launchers of the launches captured inside it, one entry
-    a launch: what a replay of the captured graphs launches."""
+    """Collects the counts taken inside it, one (launcher, counter) entry
+    a count: what a replay of the captured graphs adds."""
     launched: list = []
     _tallies.append(launched)
     try:
@@ -134,5 +135,5 @@ def tally():
 
 def count_replay(launched) -> None:
     """Counts a replay of graphs whose ``tally`` was ``launched``."""
-    for launcher in launched:
-        launcher.launches += 1
+    for launcher, counter in launched:
+        setattr(launcher, counter, getattr(launcher, counter) + 1)

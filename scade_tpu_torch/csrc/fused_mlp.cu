@@ -73,6 +73,10 @@
 //    Registers a block: 384 threads x 168 = 64,512.
 //  - The ragged last tile is masked on load and store, never padded: its
 //    rows past n encode x = 0 and are not stored.
+//  - With KEEP (f32 only) the kernel also writes, as it goes, the state that
+//    K1's backward reads (below): each layer's input, hv, alpha, the trunk's
+//    ReLU masks, the points near a ReLU threshold. Autograd's forward
+//    launches it when the backward will follow; renders never do.
 //  - sincosf with full range reduction: arguments reach pi 2^(F-1) |x|.
 //    Built without --use_fast_math.
 
@@ -411,12 +415,17 @@ __device__ void produce(const Params& p, Ring ring, int tiles) {
   }
 }
 
+struct NoSide {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // acc (64 x NOUT of this warpgroup) += A[:, 0:kp] @ part^T, chunk by chunk
 // from the ring. A points at this warp's first row; its buffer has `cols`
-// columns, zeros past them.
-template <typename T, int NOUT>
+// columns, zeros past them. side(c) runs while chunk c's last products are
+// in flight.
+template <typename T, int NOUT, typename Side = NoSide>
 __device__ __forceinline__ void gemm(float (&acc)[NOUT / 2], const T* A, int lda, int cols,
-                                     int rows, int kp, Ring& ring) {
+                                     int rows, int kp, Ring& ring, Side side = {}) {
   constexpr int SN = NOUT < SLAB ? NOUT : SLAB;
   constexpr int NS = NOUT / SN;
   constexpr int CK = Mode<T>::KSTEP * Mode<T>::DEPTHS;
@@ -445,6 +454,7 @@ __device__ __forceinline__ void gemm(float (&acc)[NOUT / 2], const T* A, int lda
         for (int q = 0; q < SN / 2; ++q) acc[(s - 1) * (SN / 2) + q] += fresh[(s - 1) & 1][q];
       }
     }
+    side(c);
     wg_wait<0>();
     keep(fresh[(NS - 1) & 1]);
 #pragma unroll
@@ -613,55 +623,278 @@ __device__ __forceinline__ void encode(const float* __restrict__ pts,
   }
 }
 
+// ---- what the forward keeps for K1's backward --------------------------------
+
+constexpr int DIRS_ROWS = 8;           // dirs stored as 8 rows, zero past 3
+constexpr float AMBIGUOUS = 0x1p-19f;  // |z| / max |z| of a row below which the fix-up decides
+
+// Where the state that K1's backward reads lies (floats, or 4-byte words),
+// for n_pad = whole tiles of points, and the backward's deltas, and where
+// each gradient lies in the flat output (the weights and biases in
+// flat_weights' order). The f32 forward that keeps (KEEP) writes the state:
+// every layer's input, the view layer's output hv, alpha, the trunk's ReLU
+// masks and the list of points the fix-up takes.
+struct Bwd {
+  int D, W, E, skip_mask;
+  long long n_pad;
+  __host__ __device__ bool skip(int l) const { return l > 0 && ((skip_mask >> (l - 1)) & 1); }
+  // layer inputs: the embedding (64 rows), h_0 .. h_{D-1}, the feature, dirs
+  __host__ __device__ long long x_emb() const { return 0; }
+  __host__ __device__ long long x_h(int l) const { return n_pad * (EMB_COLS + (long long)l * W); }
+  __host__ __device__ long long x_feat() const { return x_h(D); }
+  __host__ __device__ long long x_dirs() const { return x_h(D + 1); }
+  // then hv (W/2 rows, as the inputs), alpha a point, the masks (D x (W/64)
+  // words x 256 threads a tile), the fix-up's count (16 bytes) and rows
+  __host__ __device__ long long k_hv() const { return x_dirs() + n_pad * DIRS_ROWS; }
+  __host__ __device__ long long k_alpha() const { return k_hv() + n_pad * (W / 2); }
+  __host__ __device__ long long k_mask(long long tile, int l) const {
+    return k_alpha() + n_pad + (tile * D + l) * (W / 64) * 256;
+  }
+  __host__ __device__ long long k_fix() const { return k_mask(n_pad / TILE, 0); }
+  __host__ __device__ long long k_size() const { return k_fix() + 4 + n_pad; }
+  // deltas: trunk 0 .. D-1, feature, view
+  __host__ __device__ long long d_z(int l) const { return n_pad * (long long)l * W; }
+  __host__ __device__ long long d_feat() const { return d_z(D); }
+  __host__ __device__ long long d_v() const { return d_z(D + 1); }
+  __host__ __device__ long long d_size() const { return d_v() + n_pad * (W / 2); }
+  // weight l's (out, in) in flat_weights' order: trunk, alpha, feature, views, rgb
+  __host__ __device__ int n_out(int l) const {
+    return l < D ? W : l == D ? 1 : l == D + 1 ? W : l == D + 2 ? W / 2 : 3;
+  }
+  __host__ __device__ int k_in(int l) const {
+    return l < D ? (l == 0 ? E : skip(l) ? E + W : W) : l == D + 2 ? W + 3 : l == D + 3 ? W / 2 : W;
+  }
+  __host__ __device__ long long w_at(int l) const {  // the weight; its bias follows it
+    long long at = 0;
+    for (int j = 0; j < l; ++j) at += (long long)n_out(j) * (k_in(j) + 1);
+    return at;
+  }
+  __host__ __device__ long long total() const { return w_at(D + 4); }
+  // a warp's head slot: dw_alpha (W), db_alpha, dW_rgb (3 x W/2), db_rgb (3)
+  __host__ __device__ int head_floats() const { return W + 1 + 3 * (W / 2) + 3; }
+};
+
+// The state a keeping forward writes: Bwd's layout from `base` (k_size()
+// floats, the count zeroed before the launch).
+struct Kept {
+  Bwd s;
+  float* base;
+};
+
+// This warp's 16 rows (two chunks of 8 points) of an N-column input from
+// shared memory to its scratch chunks at dst, as wgmma B images: column i
+// of point k at (i / 8) * 64 + ((k % 8) / 4) * 32 + (i % 8) * 4 + k % 4 of
+// the chunk's N * 8 floats. A lane writes 4 points of one column, 16 bytes,
+// a piece; piece c of 2 * max(N / 16, 1) is in chunk c / max(N / 16, 1).
+template <int N>
+__device__ __forceinline__ void store_piece(const float* src, int ld, float* __restrict__ dst,
+                                            int c) {
+  constexpr int PER = N / 16 > 0 ? N / 16 : 1;
+  const int lane = threadIdx.x & 31;
+  const int fi = lane & 7, kh = (lane >> 3) & 1;
+  const int ch = c / PER, j = 2 * (c % PER) + (lane >> 4);
+  if (j >= N / 8) return;
+  const float* s = src + (ch * 8 + kh * 4) * ld + j * 8 + fi;
+  *reinterpret_cast<float4*>(dst + ch * N * 8 + j * 64 + kh * 32 + fi * 4) =
+      make_float4(s[0], s[ld], s[2 * ld], s[3 * ld]);
+}
+template <int N>
+__device__ __forceinline__ void store_x(const float* src, int ld, float* __restrict__ dst) {
+#pragma unroll 4
+  for (int c = 0; c < 2 * (N / 16 > 0 ? N / 16 : 1); ++c) store_piece<N>(src, ld, dst, c);
+}
+
+// store_x as gemm's side job over a product of n chunks: chunk c stores
+// pieces c P / n to (c + 1) P / n of its P; nothing where dst is null. (A
+// loop with runtime bounds: a product over K = N takes StoreX below; the
+// keeping forward with every side job a Spread took 0.7 ms more a fine
+// pass on an H100.)
+template <int N>
+struct Spread {
+  const float* src;
+  int ld;
+  float* dst;
+  int n;
+  __device__ __forceinline__ void operator()(int c) const {
+    constexpr int P = 2 * (N / 16 > 0 ? N / 16 : 1);
+    if (dst == nullptr) return;
+    for (int q = c * P / n; q < (c + 1) * P / n; ++q) store_piece<N>(src, ld, dst, q);
+  }
+};
+
+// Two side jobs in one.
+template <typename A, typename B>
+struct Sides {
+  A a;
+  B b;
+  __device__ __forceinline__ void operator()(int c) const { a(c), b(c); }
+};
+
+// store_x as gemm's side job, one piece a chunk: for a product over K = N
+// in f32, whose N / 8 chunks are store_x's pieces.
+template <int N>
+struct StoreX {
+  const float* src;
+  int ld;
+  float* dst;
+  __device__ __forceinline__ void operator()(int c) const { store_piece<N>(src, ld, dst, c); }
+};
+
+// The f32 epilogue of a ReLU layer, dst = relu(acc + bias) as epilogue()
+// takes it, that also keeps what K1's backward reads: r0, r1 are set where
+// row g, g + 8 of this warp holds a pre-activation z = acc + bias within
+// AMBIGUOUS of 0, relative to the row's largest |z| (there the 3xTF32 sum
+// and the plain f32 one may fall on different sides of 0; the four lanes
+// of a quad hold a row between them), and with a slot, the layer's ReLU
+// mask 1[z > 0], one bit an accumulator, goes to this thread's words of it
+// (256 apart).
+template <int NOUT>
+__device__ __forceinline__ void epilogue_keep(const float (&acc)[NOUT / 2],
+                                              const float* __restrict__ bias, float* dst, int ldd,
+                                              bool& r0, bool& r1, uint32_t* slot) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float inf = __int_as_float(0x7f800000);
+  float mx0 = 0.f, mn0 = inf, mx1 = 0.f, mn1 = inf;
+  uint32_t bits[NOUT / 64 > 0 ? NOUT / 64 : 1] = {};
+#pragma unroll
+  for (int j = 0; j < NOUT / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+    const float v0 = acc[4 * j] + bb.x, v1 = acc[4 * j + 1] + bb.y;
+    const float v2 = acc[4 * j + 2] + bb.x, v3 = acc[4 * j + 3] + bb.y;
+    mx0 = fmaxf(mx0, fmaxf(fabsf(v0), fabsf(v1))), mn0 = fminf(mn0, fminf(fabsf(v0), fabsf(v1)));
+    mx1 = fmaxf(mx1, fmaxf(fabsf(v2), fabsf(v3))), mn1 = fminf(mn1, fminf(fabsf(v2), fabsf(v3)));
+    const int q = 4 * (j % 8);
+    bits[j / 8] |= (uint32_t)(v0 > 0.f) << q | (uint32_t)(v1 > 0.f) << (q + 1) |
+                   (uint32_t)(v2 > 0.f) << (q + 2) | (uint32_t)(v3 > 0.f) << (q + 3);
+    store2(dst + g * ldd + col, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+    store2(dst + (g + 8) * ldd + col, fmaxf(v2, 0.f), fmaxf(v3, 0.f));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mn0 = fminf(mn0, __shfl_xor_sync(0xffffffffu, mn0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    mn1 = fminf(mn1, __shfl_xor_sync(0xffffffffu, mn1, o));
+  }
+  r0 |= mn0 <= AMBIGUOUS * mx0;
+  r1 |= mn1 <= AMBIGUOUS * mx1;
+  if (slot != nullptr) {
+#pragma unroll
+    for (int w = 0; w < NOUT / 64; ++w) slot[w * 256] = bits[w];
+  }
+}
+
 // One consumer warp's share of the tiles: rows r0 .. r0+15 of each, the
-// warp's rows of the block's buffers at act, emb, dsm.
-template <typename T, int W>
+// warp's rows of the block's buffers at act, emb, dsm. With KEEP (f32) it
+// also writes what K1's backward reads to k, as it goes: each layer's
+// input, the trunk's ReLU masks, alpha, hv, and the points with a ReLU
+// decision near 0.
+template <typename T, int W, bool KEEP>
 __device__ void consume(const float* __restrict__ pts, const float* __restrict__ dirs,
-                        float* __restrict__ out, int n, const Params& p, Ring ring, T* act,
-                        T* emb, T* dsm, int first_tile, int tile_step, int tiles) {
+                        float* __restrict__ out, int n, const Params& p, const Kept& k,
+                        Ring ring, T* act, T* emb, T* dsm, int first_tile, int tile_step,
+                        int tiles) {
+  static_assert(!KEEP || sizeof(T) == 4, "only the f32 forward keeps");
   using S = Smem<T, W>;
   constexpr int KSTEP = Mode<T>::KSTEP;
   const int lane = threadIdx.x & 31;
   const int wrow = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
   const T* wbuf = reinterpret_cast<const T*>(p.w);
   const int D = p.D, E = p.E;
+  const Bwd& s = k.s;
 
   clear_pads<T, W>(emb, dsm, E);
+  float* hv_dst = nullptr;  // KEEP: where the last tile's hv goes; act holds it until the
+                            // next tile's first epilogue
   for (int it = 0; it < tiles; ++it) {
-    const int r0 = (first_tile + it * tile_step) * TILE + wrow;
+    const int tile = first_tile + it * tile_step;
+    const int r0 = tile * TILE + wrow;
+    const long long c0 = r0 / 8;  // this warp's first chunk of 8 points
     encode<T, W>(pts, dirs, n, r0, E, emb, dsm);
     __syncwarp();
+    if constexpr (KEEP) {
+      store_x<DIRS_ROWS>(dsm, S::LDD, k.base + s.x_dirs() + c0 * DIRS_ROWS * 8);
+    }
 
+    // With KEEP the products store what the backward reads while their
+    // tensor-core work runs (gemm's side jobs): the first layer's product
+    // the embedding and the last tile's hv, each W-deep product over act
+    // its input. The epilogues test and keep the ReLUs. (Stored after each
+    // layer instead, the keeping forward took 0.3 ms more a fine pass.)
     int i = 0;  // the next part of the packed buffer
     float acc[W / 2];
+    bool amb0 = false, amb1 = false;  // rows g, g + 8 (KEEP): a ReLU decision near 0
     for (int l = 0; l < D; ++l) {
       zero(acc);
       if (l == 0) {
-        gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring), ++i;
+        if constexpr (KEEP)
+          gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring,
+                     Sides<Spread<EMB_COLS>, Spread<W / 2>>{
+                         {emb, S::LDE, k.base + s.x_emb() + c0 * EMB_COLS * 8, p.kp[i] / 8},
+                         {act, S::LDA, hv_dst, p.kp[i] / 8}});
+        else
+          gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring);
+        ++i;
       } else {
         if ((p.skip_mask >> (l - 1)) & 1) {
           // concat([emb, h]) @ W^T == emb @ W[:, :E]^T + h @ W[:, E:]^T
           gemm<T, W>(acc, emb, S::LDE, EMB_COLS, p.rows[i], p.kp[i], ring), ++i;
         }
-        gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+        if constexpr (KEEP)
+          gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring,
+                     StoreX<W>{act, S::LDA, k.base + s.x_h(l - 1) + c0 * W * 8});
+        else
+          gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring);
+        ++i;
       }
-      epilogue<T, W>(acc, p.b[l], act, S::LDA, true);
+      if constexpr (KEEP)
+        epilogue_keep<W>(acc, p.b[l], act, S::LDA, amb0, amb1,
+                         reinterpret_cast<uint32_t*>(k.base + s.k_mask(tile, l)) + threadIdx.x);
+      else
+        epilogue<T, W>(acc, p.b[l], act, S::LDA, true);
     }
 
     // the alpha head reads the trunk output before the feature layer replaces it
     float alpha[1];
     head<1, T>(act, S::LDA, W, wbuf + p.off[i++], p.b[D], alpha);
+    if constexpr (KEEP) {
+      if ((lane & 1) == 0) k.base[s.k_alpha() + r0 + (lane >> 1)] = alpha[0];
+    }
 
     zero(acc);
-    gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+    if constexpr (KEEP)
+      gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring,
+                 StoreX<W>{act, S::LDA, k.base + s.x_h(D - 1) + c0 * W * 8});
+    else
+      gemm<T, W>(acc, act, S::LDA, W, p.rows[i], p.kp[i], ring);
+    ++i;
     epilogue<T, W>(acc, p.b[D + 1], act, S::LDA, false);
 
     // view layer on concat([feature, dirs]) as two partial sums
     float accv[W / 4];
     zero(accv);
-    gemm<T, W / 2>(accv, act, S::LDA, W, p.rows[i], p.kp[i], ring), ++i;
+    if constexpr (KEEP)
+      gemm<T, W / 2>(accv, act, S::LDA, W, p.rows[i], p.kp[i], ring,
+                     StoreX<W>{act, S::LDA, k.base + s.x_feat() + c0 * W * 8});
+    else
+      gemm<T, W / 2>(accv, act, S::LDA, W, p.rows[i], p.kp[i], ring);
+    ++i;
     gemm<T, W / 2>(accv, dsm, S::LDD, KSTEP, p.rows[i], p.kp[i], ring), ++i;
-    epilogue<T, W / 2>(accv, p.b[D + 2], act, S::LDA, true);
+    if constexpr (KEEP) {
+      epilogue_keep<W / 2>(accv, p.b[D + 2], act, S::LDA, amb0, amb1, nullptr);
+      hv_dst = k.base + s.k_hv() + c0 * (W / 2) * 8;
+      int* count = reinterpret_cast<int*>(k.base + s.k_fix());
+      const int r = r0 + (lane >> 2);
+      if ((lane & 3) == 0) {  // the fix-up takes these rows' deltas again
+        if (amb0 && r < n) count[4 + atomicAdd(count, 1)] = r;
+        if (amb1 && r + 8 < n) count[4 + atomicAdd(count, 1)] = r + 8;
+      }
+    } else {
+      epilogue<T, W / 2>(accv, p.b[D + 2], act, S::LDA, true);
+    }
 
     float rgb[3];
     head<3, T>(act, S::LDA, W / 2, wbuf + p.off[i], p.b[D + 3], rgb);
@@ -673,12 +906,16 @@ __device__ void consume(const float* __restrict__ pts, const float* __restrict__
     }
     __syncwarp();  // the next tile's embedding overwrites what the heads read
   }
+  if constexpr (KEEP) {
+    if (hv_dst != nullptr) store_x<W / 2>(act, S::LDA, hv_dst);
+  }
 }
 
-template <typename T, int W>
+template <typename T, int W, bool KEEP>
 __global__ void __launch_bounds__(THREADS, 1)
     fused_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                     float* __restrict__ out, int n, const __grid_constant__ Params p) {
+                     float* __restrict__ out, int n, const __grid_constant__ Params p,
+                     const __grid_constant__ Kept k) {
   static_assert(W % 64 == 0, "W must be a multiple of 64");
   using S = Smem<T, W>;
   constexpr int STAGES = Mode<T>::STAGES;
@@ -707,61 +944,67 @@ __global__ void __launch_bounds__(THREADS, 1)
     T* act = reinterpret_cast<T*>(smem + S::ACT) + wrow * S::LDA;
     T* emb = reinterpret_cast<T*>(smem + S::EMB) + wrow * S::LDE;
     T* dsm = reinterpret_cast<T*>(smem + S::DIRS) + wrow * S::LDD;
-    consume<T, W>(pts, dirs, out, n, p, ring, act, emb, dsm, blockIdx.x, gridDim.x, mine);
+    consume<T, W, KEEP>(pts, dirs, out, n, p, k, ring, act, emb, dsm, blockIdx.x, gridDim.x, mine);
   }
 }
 
-// Sets the kernel's shared memory and returns in *blocks how many of its
-// blocks the card holds at once, on the first call only.
-template <typename T, int W>
+// Sets a kernel's shared memory, checks that the launch holds the registers
+// setmaxnreg hands out (it can only move what the launch allocated, else
+// .inc would wait forever), and returns in *blocks how many blocks the card
+// holds at once.
+template <typename K>
+cudaError_t resident_blocks(K kernel, int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * THREADS < CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128)
+    return cudaErrorInvalidConfiguration;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// resident_blocks of the forward, taken on the first call only.
+template <typename T, int W, bool KEEP>
 cudaError_t prepare(int* blocks) {
   static int resident = 0;
   if (resident == 0) {
-    auto kernel = fused_mlp_kernel<T, W>;
-    const int smem = Smem<T, W>::BYTES;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        resident_blocks(fused_mlp_kernel<T, W, KEEP>, Smem<T, W>::BYTES, &resident);
     if (err != cudaSuccess) return err;
-    // setmaxnreg moves registers between the warpgroups; it can only hand
-    // out what the launch allocated (else .inc would wait forever)
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    if (attr.numRegs * THREADS < CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128)
-      return cudaErrorInvalidConfiguration;
-    int per_sm = 0, dev = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    resident = per_sm * sms;
   }
   *blocks = resident;
   return cudaSuccess;
 }
 
-template <typename T, int W>
+template <typename T, int W, bool KEEP>
 cudaError_t launch(const float* pts, const float* dirs, float* out, int n, const Params& p,
-                   cudaStream_t stream) {
+                   const Kept& k, cudaStream_t stream) {
   int resident;
-  cudaError_t err = prepare<T, W>(&resident);
+  cudaError_t err = prepare<T, W, KEEP>(&resident);
   if (err != cudaSuccess) return err;
   const int tiles = (n + TILE - 1) / TILE;
-  fused_mlp_kernel<T, W><<<min(tiles, resident), THREADS, Smem<T, W>::BYTES, stream>>>(
-      pts, dirs, out, n, p);
+  fused_mlp_kernel<T, W, KEEP><<<min(tiles, resident), THREADS, Smem<T, W>::BYTES, stream>>>(
+      pts, dirs, out, n, p, k);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool KEEP>
 cudaError_t launch_t(const float* pts, const float* dirs, float* out, int n, int W,
-                     const Params& p, cudaStream_t stream) {
+                     const Params& p, const Kept& k, cudaStream_t stream) {
   switch (W) {
-    case 64: return launch<T, 64>(pts, dirs, out, n, p, stream);
-    case 128: return launch<T, 128>(pts, dirs, out, n, p, stream);
-    case 256: return launch<T, 256>(pts, dirs, out, n, p, stream);
+    case 64: return launch<T, 64, KEEP>(pts, dirs, out, n, p, k, stream);
+    case 128: return launch<T, 128, KEEP>(pts, dirs, out, n, p, k, stream);
+    case 256: return launch<T, 256, KEEP>(pts, dirs, out, n, p, k, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -809,14 +1052,25 @@ bool check_layout(const Params& p, int W, int chunk, int copies) {
 // computes the gradient of every weight and bias of the f32 network, in
 // 3xTF32 as the forward's f32 mode, whichever mode the forward ran in (the
 // bf16 forward's backward is the f32 network's gradient). Not the gradient
-// of pts or dirs: the wrapper takes the plain recompute when they ask.
+// of pts or dirs: the wrapper raises when they are asked for.
 //
-// Bound: operations. On the tensor cores a point costs the recompute's and
-// the weight gradients' 586,624 multiply-adds each at D=8, W=256, F=9 (the
-// forward's less its heads) and the input gradients' 557,056 (the view
-// layer's feature columns, the feature layer, trunk layers 7 .. 1 without
-// the skip layer's emb columns), x3 in 3xTF32: at a train step's 262,144
-// points 2.72e12 TF32 FLOP, 5.50 ms at 495 TFLOP/s.
+// What it starts from. The f32 forward that keeps (fused_mlp_kernel<float,
+// W, true>, launched by autograd's forward when grad mode is on, some
+// weight wants a gradient and pts and dirs want none) writes, beside its
+// output, the state the backward reads (Bwd's layout): every layer's input,
+// the view layer's output hv, alpha, the trunk's ReLU masks as bits a
+// tile, and the points with a ReLU decision near 0. 10,280 bytes a point at
+// D=8, W=256, F=9, live from the forward to the backward. Where no forward
+// kept (bf16, or the backward called alone) the wrapper first launches that
+// same keeping forward as the recompute, counted as any forward launch. So
+// the backward runs no forward products: it starts at the heads.
+//
+// Bound: operations. On the tensor cores a point costs the weight
+// gradients' 586,624 multiply-adds at D=8, W=256, F=9 (the forward's less
+// its heads) and the input gradients' 557,056 (the view layer's feature
+// columns, the feature layer, trunk layers 7 .. 1 without the skip layer's
+// emb columns), x3 in 3xTF32: at a train step's 262,144 points 1.80e12 TF32
+// FLOP, 3.64 ms at 495 TFLOP/s.
 //
 // ReLU decisions. A pre-activation within rounding of 0 may fall on either
 // side of it in 3xTF32 and in plain f32, and the decision switches its
@@ -825,38 +1079,37 @@ bool check_layout(const Params& p, int W, int chunk, int copies) {
 // plain f32 lies from f64. So the backward takes plain f32's decisions, as
 // PyTorch's plain recompute on cuBLAS takes them: a sum of one fused
 // multiply-add after another in the order of the inputs, then the bias
-// (cuBLAS's f32 GEMM at these shapes, bit for bit on an H100). The delta
-// kernel lists the points at which some |z| of the 3xTF32 recompute lies
+// (cuBLAS's f32 GEMM at these shapes, bit for bit on an H100). The keeping
+// forward lists the points at which some |z| of its 3xTF32 sums lies
 // within AMBIGUOUS (2^-19) of the row's largest: 1% of a train step's
 // points, against 3xTF32-vs-f32 differences measured below 2^-20 of it
 // (builds at 2^-17 .. 2^-20 gave the same bits). The fix-up kernel
 // evaluates those points' networks in plain f32, and where a decision
-// differs from the recompute's it takes the point's deltas again.
+// differs from the forward's it takes the point's deltas again.
 //
 // Design, four kernels on the caller's stream:
 //  - k1_backward_delta_kernel: the forward's block (two consumer
 //    warpgroups of 64 points, one producer thread, the bulk-copy ring,
-//    persistent blocks) and its device code (PE, 3xTF32 layer loop,
-//    heads) recompute each 128-point tile on chip, then go back through
-//    it: rgb and alpha heads and softplus in f32 on the CUDA cores, then
-//    delta_l = (delta_{l+1} W_{l+1}) * 1[h_l > 0] for the view, feature and
-//    trunk layers on wgmma (the skip layer through its h columns only). The
+//    persistent blocks, the same tiles a warp), each 128-point tile from
+//    the kept state: h_{D-1} and then hv back into shared memory, the
+//    tile's mask words by cp.async beside them, then back through it: rgb
+//    and alpha heads and softplus in f32 on the CUDA cores, then delta_l =
+//    (delta_{l+1} W_{l+1}) * 1[h_l > 0] for the view, feature and trunk
+//    layers on wgmma (the skip layer through its h columns only). The
 //    products read the transposed weights, packed per call like the
-//    forward's (pack_weights, transposed: tf32 wgmma takes both operands K-major
-//    only), streamed through the same ring after the forward's parts. The
-//    ReLU masks of the trunk go out as bits to a per-block slot (L2) in the
-//    forward pass and come back in the backward one. Every layer's input x
-//    and every delta go to scratch in device memory, feature-major, each
-//    chunk of 8 points in the image the weight-gradient products read:
-//    inputs as wgmma B images (8-row x 16-byte core matrices), deltas as
-//    the A fragments of m16n8k8, one float4 a lane. The heads' weight and
-//    bias gradients are summed per warp over its tiles into a per-warp slot.
+//    forward's (pack_weights, transposed: tf32 wgmma takes both operands
+//    K-major only), the only parts the ring streams. Every delta goes to
+//    scratch in device memory, feature-major, each chunk of 8 points as the
+//    A fragments of m16n8k8, one float4 a lane (the kept inputs are the
+//    matching wgmma B images, 8-row x 16-byte core matrices). The heads'
+//    weight and bias gradients are summed per warp over its tiles into a
+//    per-warp slot.
 //  - k1_backward_fix_kernel: the listed points, 8 at a time a block, as
 //    many blocks as the card holds: each layer's weights staged through
 //    shared memory in tiles of 32 columns by cp.async, two buffers, each
 //    thread one output unit (or, going back, one input column) for the 8
 //    points; f32 on the CUDA cores. Where a point's decisions all agree
-//    with the recompute's (its stored h > 0, its view delta nonzero) it
+//    with the forward's (its kept h > 0, its view delta nonzero) it
 //    writes nothing. The list's order varies from run to run, but a point's
 //    deltas depend on the point alone.
 //  - k1_backward_dw_kernel: dW_l = delta_l^T x_l with K the points. A block
@@ -875,60 +1128,25 @@ bool check_layout(const Params& p, int W, int chunk, int copies) {
 //    partials (heads: of the per-warp slots) in a fixed order. The
 //    partition depends only on n, the shapes and the card's SM count, so
 //    the gradients are bit-reproducible.
-// Scratch: 19.2 KB a point at W=256 (inputs 2,376 floats, deltas 2,432),
-// written once and read once; the slabs of points the L2 could hold are
-// too small to fill the card at 128 points an SM, so it goes to HBM.
-// Measured (H100 80GB HBM3, 700 W; a train step's 65,536 + 196,608 points):
-// the delta kernel 6.9 ms (the forward's own rate on twice its products),
-// the fix-up 0.74 ms (a chain of ~77 staged tiles a batch; the listed
-// points take one wave), the dW kernel 5.7 ms, of which 4.2 ms is its data
-// path alone (the inputs and deltas streamed through shared memory at ~1.8
-// TB/s), the reduction 0.14 ms: 13.5 ms against the 5.50 ms bound and the
-// plain recompute's 31.4 ms.
+// Scratch: the kept state above, then 9.7 KB of deltas a point (2,432
+// floats), written once and read once; the slabs of points the L2 could
+// hold are too small to fill the card at 128 points an SM, so both go to
+// HBM.
+// Measured (H100 80GB HBM3, 700 W; a train step's 65,536 + 196,608 points,
+// 20 traced steps): the keeping forward 3.32 ms for both passes, against
+// the plain forward's 2.92; the delta kernel 3.42 ms (6.9 when it ran the
+// forward again itself), the fix-up 0.76 ms (a chain of ~77 staged tiles a
+// batch; the listed points take one wave), the dW kernel 5.76 ms, of which
+// ~4.2 ms is its data path alone (the inputs and deltas streamed through
+// shared memory at ~1.8 TB/s), the reduction 0.13 ms: 10.1 ms against the
+// 3.64 ms bound.
 
 constexpr int MAX_TPARTS = MAX_D + 1;  // view (feature rows), feature, trunk D-1 .. 1
 constexpr int DW_STAGES = 4;           // split (hi, lo) images of a depth of 8 points
 constexpr int RAW_STAGES = 8;          // raw chunks of a layer input
 constexpr int DW_ROWS = 128;           // gradient rows a dW block takes: 2 x 64
-constexpr int DIRS_ROWS = 8;           // dirs stored as 8 rows, zero past 3
-constexpr float AMBIGUOUS = 0x1p-19f;  // |z| / max |z| of a row below which the fix-up decides
 constexpr int FIX_POINTS = 8;          // points a fix-up block takes at a time
 constexpr int FIX_KT = 32;             // K of one staged weight tile of the fix-up
-
-// Where a backward's scratch lies (floats), for n_pad = whole tiles of
-// points, and where each gradient lies in the flat output (the weights and
-// biases in flat_weights' order).
-struct Bwd {
-  int D, W, E, skip_mask;
-  long long n_pad;
-  __host__ __device__ bool skip(int l) const { return l > 0 && ((skip_mask >> (l - 1)) & 1); }
-  // layer inputs: the embedding (64 rows), h_0 .. h_{D-1}, the feature, dirs
-  __host__ __device__ long long x_emb() const { return 0; }
-  __host__ __device__ long long x_h(int l) const { return n_pad * (EMB_COLS + (long long)l * W); }
-  __host__ __device__ long long x_feat() const { return x_h(D); }
-  __host__ __device__ long long x_dirs() const { return x_h(D + 1); }
-  __host__ __device__ long long x_size() const { return x_dirs() + n_pad * DIRS_ROWS; }
-  // deltas: trunk 0 .. D-1, feature, view
-  __host__ __device__ long long d_z(int l) const { return n_pad * (long long)l * W; }
-  __host__ __device__ long long d_feat() const { return d_z(D); }
-  __host__ __device__ long long d_v() const { return d_z(D + 1); }
-  __host__ __device__ long long d_size() const { return d_v() + n_pad * (W / 2); }
-  // weight l's (out, in) in flat_weights' order: trunk, alpha, feature, views, rgb
-  __host__ __device__ int n_out(int l) const {
-    return l < D ? W : l == D ? 1 : l == D + 1 ? W : l == D + 2 ? W / 2 : 3;
-  }
-  __host__ __device__ int k_in(int l) const {
-    return l < D ? (l == 0 ? E : skip(l) ? E + W : W) : l == D + 2 ? W + 3 : l == D + 3 ? W / 2 : W;
-  }
-  __host__ __device__ long long w_at(int l) const {  // the weight; its bias follows it
-    long long at = 0;
-    for (int j = 0; j < l; ++j) at += (long long)n_out(j) * (k_in(j) + 1);
-    return at;
-  }
-  __host__ __device__ long long total() const { return w_at(D + 4); }
-  // a warp's head slot: dw_alpha (W), db_alpha, dW_rgb (3 x W/2), db_rgb (3)
-  __host__ __device__ int head_floats() const { return W + 1 + 3 * (W / 2) + 3; }
-};
 
 // One block's share of the weight gradients: rows o0 .. o0+127 (those below
 // m) of delta (m rows) times the layer input x (nx rows stored, ncols kept),
@@ -964,18 +1182,16 @@ __host__ __device__ inline int dw_job(const Bwd& s, int want, DwJob* out, int* h
 }
 
 struct BwdParams {
-  Params f;                    // the forward's f32 parts, heads and biases
   const char* wt;              // transposed parts, in the order the deltas read them
   int t_off[MAX_TPARTS], t_rows[MAX_TPARTS], t_kp[MAX_TPARTS];
   int n_tparts;
   Bwd s;
   const float* g;              // (n, 4) upstream gradient
-  float* xs;                   // scratch: layer inputs
+  const float* w_alpha;        // the heads' weights, (1, W)
+  const float* w_rgb;          //   and (3, W/2)
+  const float* kept;           // the state the forward kept
   float* ds;                   // scratch: deltas
-  uint32_t* masks;             // per block: D x (W/64) words x 256 threads
   float* heads;                // per warp: Bwd::head_floats
-  int* fix_count;              // points whose ReLU decisions the fix-up retakes,
-  int* fix_rows;               //   and their rows, in no fixed order
 };
 
 struct DwParams {
@@ -1005,24 +1221,25 @@ __device__ __forceinline__ void produce_parts(const char* w, const int* off, con
   }
 }
 
-// This warp's 16 rows (two chunks of 8 points) of an n-column input from
-// shared memory to its scratch chunks at dst, as wgmma B images: column i
-// of point k at (i / 8) * 64 + ((k % 8) / 4) * 32 + (i % 8) * 4 + k % 4 of
-// the chunk's n * 8 floats. A lane writes 4 points of one column, 16 bytes.
-template <int N>
-__device__ __forceinline__ void store_x(const float* src, int ld, float* __restrict__ dst) {
-  const int lane = threadIdx.x & 31;
-  const int fi = lane & 7, kh = (lane >> 3) & 1;
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-#pragma unroll 4
-    for (int j = lane >> 4; j < N / 8; j += 2) {
-      const float* s = src + (ch * 8 + kh * 4) * ld + j * 8 + fi;
-      *reinterpret_cast<float4*>(dst + ch * N * 8 + j * 64 + kh * 32 + fi * 4) =
-          make_float4(s[0], s[ld], s[2 * ld], s[3 * ld]);
-    }
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A 4-byte copy by cp.async, or a zero (nothing read) where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 
 // This warp's 16 rows (points) of an m-column delta (m a multiple of 16) to
 // its scratch chunks at dst, as m16n8k8 A fragments of the m x 8 transpose:
@@ -1056,66 +1273,44 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NOUT / 2], float* 
   __syncwarp();
 }
 
-// The ReLU mask of a trunk layer, 1[acc + bias > 0] as the epilogue decides
-// it, one bit per accumulator, to this thread's words of its slot (words
-// 256 apart), and back onto a delta in the same layout.
-template <int W>
-__device__ __forceinline__ void save_mask(const float (&acc)[W / 2],
-                                          const float* __restrict__ bias, uint32_t* slot) {
-  const int t = threadIdx.x & 3;
+// The inverse of store_x: this warp's 16 rows of an N-column input from
+// its scratch chunks at src into shared memory at dst, up to 16 loads of
+// 16 bytes in flight a lane.
+template <int N>
+__device__ __forceinline__ void load_x(const float* __restrict__ src, float* dst, int ld) {
+  const int lane = threadIdx.x & 31;
+  const int fi = lane & 7, kh = (lane >> 3) & 1, jh = lane >> 4;
+  constexpr int PER = N / 16;  // float4s a lane takes of a chunk
+  constexpr int BATCH = 2 * PER <= 16 ? 2 * PER : PER;
 #pragma unroll
-  for (int w = 0; w < W / 64; ++w) {
-    uint32_t bits = 0;
+  for (int b = 0; b < 2 * PER; b += BATCH) {
+    float4 v[BATCH];
 #pragma unroll
-    for (int j = 8 * w; j < 8 * w + 8; ++j) {  // 4 accumulators a column pair
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + j * 8 + 2 * t));
-      const int q = 4 * (j - 8 * w);
-      bits |= (uint32_t)(acc[4 * j] + bb.x > 0.f) << q;
-      bits |= (uint32_t)(acc[4 * j + 1] + bb.y > 0.f) << (q + 1);
-      bits |= (uint32_t)(acc[4 * j + 2] + bb.x > 0.f) << (q + 2);
-      bits |= (uint32_t)(acc[4 * j + 3] + bb.y > 0.f) << (q + 3);
+    for (int q = 0; q < BATCH; ++q) {
+      const int ch = (b + q) / PER, j = 2 * ((b + q) % PER) + jh;
+      v[q] = *reinterpret_cast<const float4*>(src + ch * N * 8 + j * 64 + kh * 32 + fi * 4);
     }
-    slot[w * 256] = bits;
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int ch = (b + q) / PER, j = 2 * ((b + q) % PER) + jh;
+      float* d = dst + (ch * 8 + kh * 4) * ld + j * 8 + fi;
+      d[0] = v[q].x, d[ld] = v[q].y, d[2 * ld] = v[q].z, d[3 * ld] = v[q].w;
+    }
   }
+  __syncwarp();
 }
+
+// A trunk layer's ReLU mask (epilogue_keep's words, `stride` apart) onto a
+// delta in the wgmma accumulator layout.
 template <int W>
-__device__ __forceinline__ void apply_mask(float (&acc)[W / 2], const uint32_t* slot) {
+__device__ __forceinline__ void apply_mask(float (&acc)[W / 2], const uint32_t* slot, int stride) {
 #pragma unroll
   for (int w = 0; w < W / 64; ++w) {
-    const uint32_t bits = slot[w * 256];
+    const uint32_t bits = slot[w * stride];
 #pragma unroll
     for (int q = 0; q < 32; ++q)
       if (!((bits >> q) & 1)) acc[32 * w + q] = 0.f;
   }
-}
-
-// Whether row g (r0) and row g + 8 (r1) of this warp hold a pre-activation
-// acc + bias within AMBIGUOUS of 0, relative to the row's largest |acc +
-// bias|: there the 3xTF32 sum and the plain f32 one may fall on different
-// sides of 0. The four lanes of a quad hold a row between them.
-template <int NOUT>
-__device__ __forceinline__ void near_zero(const float (&acc)[NOUT / 2],
-                                          const float* __restrict__ bias, bool& r0, bool& r1) {
-  const int t = threadIdx.x & 3;
-  const float inf = __int_as_float(0x7f800000);
-  float mx0 = 0.f, mn0 = inf, mx1 = 0.f, mn1 = inf;
-#pragma unroll
-  for (int j = 0; j < NOUT / 8; ++j) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + j * 8 + 2 * t));
-    const float a = fabsf(acc[4 * j] + bb.x), b = fabsf(acc[4 * j + 1] + bb.y);
-    const float c = fabsf(acc[4 * j + 2] + bb.x), d = fabsf(acc[4 * j + 3] + bb.y);
-    mx0 = fmaxf(mx0, fmaxf(a, b)), mn0 = fminf(mn0, fminf(a, b));
-    mx1 = fmaxf(mx1, fmaxf(c, d)), mn1 = fminf(mn1, fminf(c, d));
-  }
-#pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mn0 = fminf(mn0, __shfl_xor_sync(0xffffffffu, mn0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    mn1 = fminf(mn1, __shfl_xor_sync(0xffffffffu, mn1, o));
-  }
-  r0 |= mn0 <= AMBIGUOUS * mx0;
-  r1 |= mn1 <= AMBIGUOUS * mx1;
 }
 
 // s (+)= v into a per-warp slot: stored on the warp's first tile, added to
@@ -1124,60 +1319,45 @@ __device__ __forceinline__ void slot_add(float* p, float v, bool first) {
   *p = first ? v : *p + v;
 }
 
-// One consumer warp of the delta kernel: rows r0 .. r0+15 of each of its tiles.
+// One consumer warp of the delta kernel: rows r0 .. r0+15 of each of its
+// tiles, from the kept state. msm: the warp's shared slot for the tile's
+// mask words (word w of lane l at 32 w + l), or null where they do not fit
+// there and are read from the state.
 template <int W>
-__device__ void consume_backward(const float* __restrict__ pts, const float* __restrict__ dirs,
-                                 int n, const BwdParams& p, Ring ring, float* act, float* emb,
-                                 float* dsm, float* gal, int first_tile, int tile_step,
-                                 int tiles) {
+__device__ void consume_backward(int n, const BwdParams& p, Ring ring, float* act, uint32_t* msm,
+                                 float* gal, int first_tile, int tile_step, int tiles) {
   using S = Smem<float, W>;
   constexpr int H = W / 2;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const Bwd& s = p.s;
-  const float* wbuf = reinterpret_cast<const float*>(p.f.w);
-  const int D = p.f.D, E = p.f.E;
-  uint32_t* mask = p.masks + (size_t)blockIdx.x * D * (W / 64) * 256 + threadIdx.x;
+  const int D = s.D;
   float* hs = p.heads + ((size_t)blockIdx.x * CONSUMER_WARPS + warp) * s.head_floats();
 
-  clear_pads<float, W>(emb, dsm, E);
   for (int it = 0; it < tiles; ++it) {
     const bool first = it == 0;
-    const int r0 = (first_tile + it * tile_step) * TILE + warp * 16;
+    const int tile = first_tile + it * tile_step;
+    const int r0 = tile * TILE + warp * 16;
     const long long c0 = r0 / 8;  // this warp's first chunk of 8 points
-    encode<float, W>(pts, dirs, n, r0, E, emb, dsm);
-    __syncwarp();
-    store_x<EMB_COLS>(emb, S::LDE, p.xs + s.x_emb() + c0 * EMB_COLS * 8);
-    store_x<DIRS_ROWS>(dsm, S::LDD, p.xs + s.x_dirs() + c0 * DIRS_ROWS * 8);
-
-    // ---- the forward again, keeping every layer's input
-    int i = 0;
-    float acc[W / 2];
-    bool amb0 = false, amb1 = false;  // rows g, g + 8: a ReLU decision near 0
-    for (int l = 0; l < D; ++l) {
-      zero(acc);
-      if (l == 0) {
-        gemm<float, W>(acc, emb, S::LDE, EMB_COLS, p.f.rows[i], p.f.kp[i], ring), ++i;
-      } else {
-        if (s.skip(l)) gemm<float, W>(acc, emb, S::LDE, EMB_COLS, p.f.rows[i], p.f.kp[i], ring), ++i;
-        gemm<float, W>(acc, act, S::LDA, W, p.f.rows[i], p.f.kp[i], ring), ++i;
-      }
-      epilogue<float, W>(acc, p.f.b[l], act, S::LDA, true);
-      near_zero<W>(acc, p.f.b[l], amb0, amb1);
-      save_mask<W>(acc, p.f.b[l], mask + (size_t)l * (W / 64) * 256);
-      store_x<W>(act, S::LDA, p.xs + s.x_h(l) + c0 * W * 8);
+    // this thread's mask words of the tile, 256 apart, layer by layer; into
+    // shared memory while the heads run
+    const uint32_t* mask = reinterpret_cast<const uint32_t*>(p.kept + s.k_mask(tile, 0)) + threadIdx.x;
+    int ms = 256;
+    if (msm != nullptr) {
+      for (int w = 0; w < D * (W / 64); ++w)
+        cp_async4(msm + 32 * w + lane, reinterpret_cast<const float*>(mask + 256 * w), true);
+      cp_async_commit();
+      mask = msm + lane, ms = 32;
     }
+    load_x<W>(p.kept + s.x_h(D - 1) + c0 * W * 8, act, S::LDA);
 
-    // alpha, and its upstream gradient through softplus(10 alpha) / 10 as
+    // alpha's upstream gradient through softplus(10 alpha) / 10 as
     // PyTorch's softplus backward takes it (threshold 20); lanes 2r, 2r+1
-    // hold row r's. dw_alpha and db_alpha from h_{D-1}, still in act.
-    const int ia = i++;
+    // hold row r's. dw_alpha and db_alpha from h_{D-1}, now in act.
     {
-      float alpha[1];
-      head<1, float>(act, S::LDA, W, wbuf + p.f.off[ia], p.f.b[D], alpha);
       const int row = r0 + (lane >> 1);
       const float gs = row < n ? __ldg(p.g + (size_t)row * 4 + 3) : 0.f;
-      const float z = 10.f * alpha[0];
+      const float z = 10.f * p.kept[s.k_alpha() + row];
       const float e = expf(z);
       const float ga = (z > 20.f ? gs / 10.f : gs / 10.f * e / (e + 1.f)) * 10.f;
       if ((lane & 1) == 0) gal[lane >> 1] = ga;
@@ -1195,28 +1375,13 @@ __device__ void consume_backward(const float* __restrict__ pts, const float* __r
       for (int k = 0; k < W / 32; ++k) slot_add(hs + lane + 32 * k, sw[k], first);
       if (lane == 0) slot_add(hs + W, sb, first);
     }
-
-    zero(acc);
-    gemm<float, W>(acc, act, S::LDA, W, p.f.rows[i], p.f.kp[i], ring), ++i;
-    epilogue<float, W>(acc, p.f.b[D + 1], act, S::LDA, false);
-    store_x<W>(act, S::LDA, p.xs + s.x_feat() + c0 * W * 8);
-    {
-      float accv[W / 4];
-      zero(accv);
-      gemm<float, W / 2>(accv, act, S::LDA, W, p.f.rows[i], p.f.kp[i], ring), ++i;
-      gemm<float, W / 2>(accv, dsm, S::LDD, Mode<float>::KSTEP, p.f.rows[i], p.f.kp[i], ring), ++i;
-      epilogue<float, W / 2>(accv, p.f.b[D + 2], act, S::LDA, true);
-      near_zero<W / 2>(accv, p.f.b[D + 2], amb0, amb1);
-    }
-    if (t == 0) {  // the fix-up takes these rows' deltas again
-      if (amb0 && r0 + g < n) p.fix_rows[atomicAdd(p.fix_count, 1)] = r0 + g;
-      if (amb1 && r0 + g + 8 < n) p.fix_rows[atomicAdd(p.fix_count, 1)] = r0 + g + 8;
-    }
+    __syncwarp();  // hv replaces what the alpha head read
+    load_x<H>(p.kept + s.k_hv() + c0 * H * 8, act, S::LDA);
 
     // ---- back through the rgb head on the CUDA cores: delta_v =
     // (g_rgb W_rgb) * 1[hv > 0] into act[:, H:W]; dW_rgb, db_rgb per warp
     {
-      const float* wr = wbuf + p.f.off[i];
+      const float* wr = p.w_rgb;
       float w[3][H / 32], sw[3][H / 32], sb[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int k = 0; k < H / 32; ++k)
@@ -1254,6 +1419,7 @@ __device__ void consume_backward(const float* __restrict__ pts, const float* __r
 
     // ---- the deltas on wgmma, through the transposed parts
     int k = 0;
+    float acc[W / 2];
     zero(acc);  // feature: no ReLU
     gemm<float, W>(acc, act + H, S::LDA, H, p.t_rows[k], p.t_kp[k], ring), ++k;
     store_rows<W>(acc, act, S::LDA);
@@ -1263,16 +1429,16 @@ __device__ void consume_backward(const float* __restrict__ pts, const float* __r
     gemm<float, W>(acc, act, S::LDA, W, p.t_rows[k], p.t_kp[k], ring), ++k;
     {
       const float ga0 = gal[g], ga1 = gal[g + 8];
-      const float* wa = wbuf + p.f.off[ia];
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
-        const float2 w2 = *reinterpret_cast<const float2*>(wa + j * 8 + 2 * t);
-        acc[4 * j] += ga0 * w2.x, acc[4 * j + 1] += ga0 * w2.y;
-        acc[4 * j + 2] += ga1 * w2.x, acc[4 * j + 3] += ga1 * w2.y;
+        const float w0 = p.w_alpha[j * 8 + 2 * t], w1 = p.w_alpha[j * 8 + 2 * t + 1];
+        acc[4 * j] += ga0 * w0, acc[4 * j + 1] += ga0 * w1;
+        acc[4 * j + 2] += ga1 * w0, acc[4 * j + 3] += ga1 * w1;
       }
     }
+    cp_async_wait<0>();  // the mask words (a lane reads only its own)
     for (int l = D - 1;; --l) {  // acc holds the gradient of h_l
-      apply_mask<W>(acc, mask + (size_t)l * (W / 64) * 256);
+      apply_mask<W>(acc, mask + l * (W / 64) * ms, ms);
       store_rows<W>(acc, act, S::LDA);
       store_delta<W>(act, S::LDA, p.ds + s.d_z(l) + c0 * W * 8);
       if (l == 0) break;
@@ -1285,8 +1451,7 @@ __device__ void consume_backward(const float* __restrict__ pts, const float* __r
 
 template <int W>
 __global__ void __launch_bounds__(THREADS, 1)
-    k1_backward_delta_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, int n,
-                             const __grid_constant__ BwdParams p) {
+    k1_backward_delta_kernel(int n, const __grid_constant__ BwdParams p) {
   using S = Smem<float, W>;
   constexpr int STAGES = Mode<float>::STAGES;
   extern __shared__ __align__(128) char smem[];
@@ -1307,18 +1472,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x >= 128 * CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 128 * CONSUMERS)
-      for (int t = 0; t < mine; ++t) {
-        produce_parts(p.f.w, p.f.off, p.f.rows, p.f.kp, p.f.n_parts, ring);
-        produce_parts(p.wt, p.t_off, p.t_rows, p.t_kp, p.n_tparts, ring);
-      }
+      for (int t = 0; t < mine; ++t) produce_parts(p.wt, p.t_off, p.t_rows, p.t_kp, p.n_tparts, ring);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int wrow = (threadIdx.x >> 5) * 16;
-    float* act = reinterpret_cast<float*>(smem + S::ACT) + wrow * S::LDA;
-    float* emb = reinterpret_cast<float*>(smem + S::EMB) + wrow * S::LDE;
-    float* dsm = reinterpret_cast<float*>(smem + S::DIRS) + wrow * S::LDD;
-    float* gal = reinterpret_cast<float*>(smem + S::BYTES) + wrow;  // alpha's gradient a row
-    consume_backward<W>(pts, dirs, n, p, ring, act, emb, dsm, gal, blockIdx.x, gridDim.x, mine);
+    const int warp = threadIdx.x >> 5, words = p.s.D * (W / 64);
+    float* act = reinterpret_cast<float*>(smem + S::ACT) + warp * 16 * S::LDA;
+    // the forward's embedding and dirs buffers hold the mask words where they fit
+    uint32_t* msm = CONSUMER_WARPS * words * 32 * 4 <= S::RING - S::EMB
+                        ? reinterpret_cast<uint32_t*>(smem + S::EMB) + warp * words * 32
+                        : nullptr;
+    float* gal = reinterpret_cast<float*>(smem + S::BYTES) + warp * 16;  // alpha's gradient a row
+    consume_backward<W>(n, p, ring, act, msm, gal, blockIdx.x, gridDim.x, mine);
   }
 }
 
@@ -1336,25 +1500,6 @@ struct DwSmem {
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A 4-byte copy by cp.async, or a zero (nothing read) where !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
 // ---- the fix-up: plain f32 ReLU decisions where the 3xTF32 ones may differ
 
 struct FixParams {
@@ -1366,7 +1511,7 @@ struct FixParams {
   const float* b[MAX_D + 4];   // and biases
   const int* count;
   const int* rows;
-  const float* xs;             // the delta kernel's layer inputs
+  const float* xs;             // the kept layer inputs
   float* ds;                   // and deltas, rewritten for the rows that need it
 };
 
@@ -1389,8 +1534,8 @@ struct FixSmem {
 };
 
 // Where the delta kernel stored column col of point row of an m-column
-// delta starting at base (store_delta's layout), and of an n-column layer
-// input (store_x's).
+// delta starting at base (store_delta's layout), and where the forward kept
+// an n-column layer input (store_x's).
 __device__ __forceinline__ long long delta_at(long long base, int m, int row, int col) {
   return base + (long long)(row >> 3) * m * 8 + (col >> 4) * 128 + (4 * (col & 7) + (row & 3)) * 4 +
          ((col >> 3) & 1) + 2 * ((row >> 2) & 1);
@@ -1518,7 +1663,7 @@ __device__ void fix_dense_t(const float* __restrict__ w, int K, int nout, int c0
 
 // z = acc + bias (one rounding, as cuBLAS's epilogue adds it), its ReLU
 // decisions as bits (m: FIX_POINTS x W/32 words) and, if dst, relu(z) or z
-// there. need[q] is set where a decision differs from the delta kernel's:
+// there. need[q] is set where a decision differs from the forward's:
 // h > 0 in its layer input at xin (a trunk layer), or, at dv (the view
 // layer), a nonzero delta (its delta is 0 where the ReLU stopped it; where
 // the product itself is 0 the decision does not matter).
@@ -1560,10 +1705,10 @@ __device__ __forceinline__ void fix_delta(const float (&acc)[FIX_POINTS], const 
   }
 }
 
-// The rows the delta kernel listed, FIX_POINTS at a time: the network again
+// The rows the keeping forward listed, FIX_POINTS at a time: the network again
 // in plain f32 (the PE as PyTorch's sin and cos take it, every product as
 // fix_dense sums it) and its ReLU decisions. Where one differs from the
-// delta kernel's, every delta of the row again from the heads down, in f32
+// forward's, every delta of the row again from the heads down, in f32
 // on the CUDA cores; the weight gradients then read these deltas as any
 // others. A row's result depends on nothing but the row, so the order of
 // the list does not matter. Two blocks an SM, as the shared memory allows,
@@ -1884,35 +2029,11 @@ __global__ void k1_backward_reduce_kernel(const float* __restrict__ part, int sp
   }
 }
 
-// Sets a kernel's shared memory, checks that the launch holds the registers
-// setmaxnreg hands out, and returns in *blocks how many blocks the card
-// holds at once.
-template <typename K>
-cudaError_t resident_blocks(K kernel, int smem, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs * THREADS < CONSUMER_REGS * 128 * CONSUMERS + PRODUCER_REGS * 128)
-    return cudaErrorInvalidConfiguration;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
 // The launch geometry and workspace of one backward call.
 struct BwdPlan {
   Bwd s;
   int delta_blocks, jobs, splits, fix_blocks;
-  long long masks, heads, fix, part, bytes;  // byte offsets in the workspace, and its size
+  long long heads, part, bytes;  // byte offsets in the workspace (the deltas at 0), and its size
 };
 
 // Sets the fix-up kernel's shared memory and returns in *blocks how many of
@@ -1954,26 +2075,30 @@ cudaError_t plan_w(BwdPlan* q) {
   int splits = dw_res / (heavy > 0 ? heavy : 1);
   splits = splits < 1 ? 1 : splits;
   q->splits = splits > chunks ? (int)chunks : splits;
-  const long long floats = s.x_size() + s.d_size();
-  q->masks = floats * 4;
-  q->heads = q->masks + (long long)q->delta_blocks * s.D * (W / 64) * 256 * 4;
-  q->fix = q->heads + (long long)q->delta_blocks * CONSUMER_WARPS * s.head_floats() * 4;
-  q->part = q->fix + 16 + s.n_pad * 4;  // the count, then the rows
+  q->heads = s.d_size() * 4;
+  q->part = q->heads + (long long)q->delta_blocks * CONSUMER_WARPS * s.head_floats() * 4;
   q->bytes = q->part + (long long)q->splits * s.total() * 4;
+  return cudaSuccess;
+}
+
+// The layout of the kept state and a backward's scratch for n points.
+cudaError_t make_bwd(int n, int D, int W, int num_freqs, int skip_mask, Bwd* s) {
+  if (n <= 0 || D < 1 || D > MAX_D || num_freqs < 1 || 3 + 6 * num_freqs > EMB_COLS ||
+      (W != 64 && W != 128 && W != 256))
+    return cudaErrorInvalidValue;
+  *s = Bwd{D, W, 3 + 6 * num_freqs, skip_mask & ((1 << (D - 1)) - 1),
+           (long long)((n + TILE - 1) / TILE) * TILE};
   return cudaSuccess;
 }
 
 // The plan of a backward call on n points.
 cudaError_t backward_plan(int n, int D, int W, int num_freqs, int skip_mask, BwdPlan* q) {
-  if (n <= 0 || D < 1 || D > MAX_D || num_freqs < 1 || 3 + 6 * num_freqs > EMB_COLS)
-    return cudaErrorInvalidValue;
-  q->s = Bwd{D, W, 3 + 6 * num_freqs, skip_mask & ((1 << (D - 1)) - 1),
-             (long long)((n + TILE - 1) / TILE) * TILE};
+  const cudaError_t err = make_bwd(n, D, W, num_freqs, skip_mask, &q->s);
+  if (err != cudaSuccess) return err;
   switch (W) {
     case 64: return plan_w<64>(q);
     case 128: return plan_w<128>(q);
-    case 256: return plan_w<256>(q);
-    default: return cudaErrorInvalidValue;
+    default: return plan_w<256>(q);
   }
 }
 
@@ -1983,26 +2108,20 @@ cudaError_t launch_backward(const float* pts, const float* dirs, int n, BwdParam
                             cudaStream_t stream) {
   const Bwd& s = q.s;
   bp.s = s;
-  bp.xs = reinterpret_cast<float*>(ws);
-  bp.ds = bp.xs + s.x_size();
-  bp.masks = reinterpret_cast<uint32_t*>(ws + q.masks);
+  bp.ds = reinterpret_cast<float*>(ws);
   bp.heads = reinterpret_cast<float*>(ws + q.heads);
-  bp.fix_count = reinterpret_cast<int*>(ws + q.fix);
-  bp.fix_rows = bp.fix_count + 4;
-  cudaError_t err = cudaMemsetAsync(bp.fix_count, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return err;
   k1_backward_delta_kernel<W><<<q.delta_blocks, THREADS,
-                                Smem<float, W>::BYTES + TILE * (int)sizeof(float), stream>>>(
-      pts, dirs, n, bp);
-  err = cudaGetLastError();
+                                Smem<float, W>::BYTES + TILE * (int)sizeof(float), stream>>>(n, bp);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fp.s = s;
   fp.pts = pts, fp.dirs = dirs, fp.g = bp.g;
-  fp.count = bp.fix_count, fp.rows = bp.fix_rows, fp.xs = bp.xs, fp.ds = bp.ds;
+  fp.count = reinterpret_cast<const int*>(bp.kept + s.k_fix());
+  fp.rows = fp.count + 4, fp.xs = bp.kept, fp.ds = bp.ds;
   k1_backward_fix_kernel<W><<<q.fix_blocks, W, FixSmem<W>::BYTES, stream>>>(fp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  DwParams dp{s, q.splits, s.n_pad / 8, bp.xs, bp.ds, reinterpret_cast<float*>(ws + q.part)};
+  DwParams dp{s, q.splits, s.n_pad / 8, bp.kept, bp.ds, reinterpret_cast<float*>(ws + q.part)};
   k1_backward_dw_kernel<W><<<q.jobs * q.splits, THREADS, DwSmem<W>::BYTES, stream>>>(dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -2019,7 +2138,7 @@ cudaError_t launch_backward(const float* pts, const float* dirs, int n, BwdParam
 // them: rows W each, K the view layer's W/2 outputs, then W for the
 // feature and trunk layers, whole chunks, one after another from 0.
 bool check_layout_t(const BwdParams& p, int W) {
-  if (p.n_tparts != p.f.D + 1) return false;
+  if (p.n_tparts != p.s.D + 1) return false;
   int end = 0;
   for (int i = 0; i < p.n_tparts; ++i) {
     if (p.t_rows[i] != W || p.t_kp[i] != (i == 0 ? W / 2 : W) || p.t_off[i] != end) return false;
@@ -2034,15 +2153,23 @@ bool check_layout_t(const BwdParams& p, int W) {
 // ops/fused_mlp.py::pack_weights writes them, bf16 when bf16 != 0 and f32
 // otherwise, 16-byte aligned; layout: n_parts triples (element offset, rows,
 // padded K) from pack_layout; biases: D + 4 device pointers to the f32
-// biases in the order trunk 0..D-1, alpha, feature, views, rgb. Launches one
-// kernel on `stream`. Returns a cudaError_t; 0 is success.
+// biases in the order trunk 0..D-1, alpha, feature, views, rgb. kept: null,
+// or (f32 only) `kept_bytes` of device memory, 16-byte aligned, at least
+// what fused_mlp_kept_bytes gives, for the state K1's backward reads (its
+// count zeroed here). Launches one kernel on `stream` (and a memset when
+// keeping). Returns a cudaError_t; 0 is success.
 extern "C" int fused_mlp_forward(const float* pts, const float* dirs, float* out, int n, int D,
                                  int W, int num_freqs, int skip_mask, int bf16_mode,
                                  const void* packed, const int* layout, int n_parts,
-                                 const void* const* biases, void* stream) {
+                                 const void* const* biases, void* kept, long long kept_bytes,
+                                 void* stream) {
   if (n <= 0) return 0;
-  if (D < 1 || D > MAX_D || num_freqs < 1 || 3 + 6 * num_freqs > EMB_COLS ||
-      n_parts < 1 || n_parts > MAX_PARTS || reinterpret_cast<uintptr_t>(packed) % 16 != 0)
+  Kept k{};
+  cudaError_t err = make_bwd(n, D, W, num_freqs, skip_mask, &k.s);
+  if (err != cudaSuccess || n_parts < 1 || n_parts > MAX_PARTS ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+      (kept != nullptr && (bf16_mode || kept_bytes < k.s.k_size() * 4 ||
+                           reinterpret_cast<uintptr_t>(kept) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.w = static_cast<const char*>(packed);
@@ -2053,16 +2180,21 @@ extern "C" int fused_mlp_forward(const float* pts, const float* dirs, float* out
   }
   for (int l = 0; l < D + 4; ++l) p.b[l] = static_cast<const float*>(biases[l]);
   p.D = D;
-  p.E = 3 + 6 * num_freqs;
-  p.skip_mask = skip_mask & ((1 << (D - 1)) - 1);
+  p.E = k.s.E;
+  p.skip_mask = k.s.skip_mask;
   p.n_parts = n_parts;
   const bool ok =
       bf16_mode ? check_layout(p, W, Mode<bf16>::KSTEP * Mode<bf16>::DEPTHS, Mode<bf16>::COPIES)
                 : check_layout(p, W, Mode<float>::KSTEP * Mode<float>::DEPTHS, Mode<float>::COPIES);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_mode ? (int)launch_t<bf16>(pts, dirs, out, n, W, p, s)
-                   : (int)launch_t<float>(pts, dirs, out, n, W, p, s);
+  if (kept != nullptr) {
+    k.base = static_cast<float*>(kept);
+    err = cudaMemsetAsync(k.base + k.s.k_fix(), 0, sizeof(int), s);
+    return (int)(err != cudaSuccess ? err : launch_t<float, true>(pts, dirs, out, n, W, p, k, s));
+  }
+  return bf16_mode ? (int)launch_t<bf16, false>(pts, dirs, out, n, W, p, k, s)
+                   : (int)launch_t<float, false>(pts, dirs, out, n, W, p, k, s);
 }
 
 // The geometry the built kernel uses: points a block takes at a time, the
@@ -2073,8 +2205,18 @@ extern "C" int fused_mlp_geometry(int* tile, int* stages_bf16, int* stages_f32, 
   *tile = TILE;
   *stages_bf16 = Mode<bf16>::STAGES;
   *stages_f32 = Mode<float>::STAGES;
-  cudaError_t err = prepare<bf16, 256>(blocks_bf16);
-  return (int)(err != cudaSuccess ? err : prepare<float, 256>(blocks_f32));
+  cudaError_t err = prepare<bf16, 256, false>(blocks_bf16);
+  return (int)(err != cudaSuccess ? err : prepare<float, 256, false>(blocks_f32));
+}
+
+// The bytes of the state a keeping forward writes for n points, in *bytes.
+// Returns a cudaError_t.
+extern "C" int fused_mlp_kept_bytes(int n, int D, int W, int num_freqs, int skip_mask,
+                                    long long* bytes) {
+  Bwd s;
+  const cudaError_t err = make_bwd(n, D, W, num_freqs, skip_mask, &s);
+  *bytes = err == cudaSuccess ? s.k_size() * 4 : 0;
+  return (int)err;
 }
 
 // The bytes of device workspace fused_mlp_backward needs for n points, in
@@ -2087,45 +2229,36 @@ extern "C" int fused_mlp_backward_workspace(int n, int D, int W, int num_freqs, 
   return (int)err;
 }
 
-// K1's backward (see "K1's backward" above): from pts, dirs (n, 3) and the
-// upstream gradient g (n, 4), all f32, the gradient of every weight and bias
-// into grad (grad_len floats: flat_weights' tensors one after another).
-// g 16-byte aligned. packed/layout: the f32 weights as pack_weights writes
-// them and its parts; packed_t/layout_t: its transposed buffer and parts;
-// weights: D + 4 device pointers to the f32 weights (out, in) as they are,
-// and biases to the biases, both in the order of fused_mlp_forward's
-// biases; workspace: `bytes` of device memory, 16-byte aligned, at least
-// what fused_mlp_backward_workspace gives. Launches four kernels on
-// `stream`. Returns a cudaError_t; 0 is success.
+// K1's backward (see "K1's backward" above): from pts, dirs (n, 3), the
+// upstream gradient g (n, 4), all f32, and the state a keeping forward on
+// the same points and weights wrote (kept, kept_bytes), the gradient of
+// every weight and bias into grad (grad_len floats: flat_weights' tensors
+// one after another). g 16-byte aligned. packed_t/layout_t: the transposed
+// buffer pack_weights writes and its parts; weights: D + 4 device pointers
+// to the f32 weights (out, in) as they are, and biases to the biases, both
+// in the order of fused_mlp_forward's biases; workspace: `bytes` of device
+// memory, 16-byte aligned, at least what fused_mlp_backward_workspace
+// gives. Launches four kernels on `stream`. Returns a cudaError_t; 0 is
+// success.
 extern "C" int fused_mlp_backward(const float* pts, const float* dirs, const float* g, float* grad,
                                   long long grad_len, int n, int D, int W, int num_freqs,
-                                  int skip_mask, const void* packed, const int* layout, int n_parts,
-                                  const void* packed_t, const int* layout_t, int n_tparts,
-                                  const void* const* weights, const void* const* biases,
-                                  void* workspace, long long bytes, void* stream) {
+                                  int skip_mask, const void* packed_t, const int* layout_t,
+                                  int n_tparts, const void* const* weights,
+                                  const void* const* biases, const void* kept,
+                                  long long kept_bytes, void* workspace, long long bytes,
+                                  void* stream) {
   if (n <= 0) return 0;
   BwdPlan q;
   cudaError_t err = backward_plan(n, D, W, num_freqs, skip_mask, &q);
   if (err != cudaSuccess) return (int)err;
-  if (n_parts < 1 || n_parts > MAX_PARTS || n_tparts < 1 || n_tparts > MAX_TPARTS ||
-      grad_len != q.s.total() || bytes < q.bytes ||
-      reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+  if (n_tparts < 1 || n_tparts > MAX_TPARTS || grad_len != q.s.total() || bytes < q.bytes ||
+      kept == nullptr || kept_bytes < q.s.k_size() * 4 ||
+      reinterpret_cast<uintptr_t>(kept) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(packed_t) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(workspace) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   BwdParams p;
-  p.f.w = static_cast<const char*>(packed);
-  for (int i = 0; i < n_parts; ++i) {
-    p.f.off[i] = layout[3 * i];
-    p.f.rows[i] = layout[3 * i + 1];
-    p.f.kp[i] = layout[3 * i + 2];
-  }
-  for (int l = 0; l < D + 4; ++l) p.f.b[l] = static_cast<const float*>(biases[l]);
-  p.f.D = D;
-  p.f.E = q.s.E;
-  p.f.skip_mask = q.s.skip_mask;
-  p.f.n_parts = n_parts;
   p.wt = static_cast<const char*>(packed_t);
   for (int i = 0; i < n_tparts; ++i) {
     p.t_off[i] = layout_t[3 * i];
@@ -2133,21 +2266,22 @@ extern "C" int fused_mlp_backward(const float* pts, const float* dirs, const flo
     p.t_kp[i] = layout_t[3 * i + 2];
   }
   p.n_tparts = n_tparts;
+  p.s = q.s;
   p.g = g;
-  if (!check_layout(p.f, W, Mode<float>::KSTEP * Mode<float>::DEPTHS, Mode<float>::COPIES) ||
-      !check_layout_t(p, W))
-    return (int)cudaErrorInvalidValue;
+  p.w_alpha = static_cast<const float*>(weights[D]);
+  p.w_rgb = static_cast<const float*>(weights[D + 3]);
+  p.kept = static_cast<const float*>(kept);
+  if (!check_layout_t(p, W)) return (int)cudaErrorInvalidValue;
   FixParams fp;
   for (int l = 0; l < D + 4; ++l) {
     fp.w[l] = static_cast<const float*>(weights[l]);
-    fp.b[l] = p.f.b[l];
+    fp.b[l] = static_cast<const float*>(biases[l]);
   }
   char* ws = static_cast<char*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
     case 64: return (int)launch_backward<64>(pts, dirs, n, p, fp, q, ws, grad, s);
     case 128: return (int)launch_backward<128>(pts, dirs, n, p, fp, q, ws, grad, s);
-    case 256: return (int)launch_backward<256>(pts, dirs, n, p, fp, q, ws, grad, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_backward<256>(pts, dirs, n, p, fp, q, ws, grad, s);
   }
 }

@@ -15,15 +15,31 @@ kernel (``fused_mlp_cuda``) and raises if the launch fails; only for CPU
 tensors does it take the plain version (``fused_mlp_plain``), which is also
 the oracle the kernel is held against. Its backward gives the gradients of
 the f32 network in either mode. On the card it runs K1's backward kernels
-(``fused_mlp_backward_cuda``): the network recomputed per tile on chip, as
-the JAX package's custom VJP recomputes, and its weight and bias gradients
-in 3xTF32, reading the weights also in a transposed packed layout
-(``pack_layout_t``), with the ReLU decisions of the plain version in f32
-where 3xTF32 may take another. They give no gradient for pts or dirs, so
-on the card a backward that wants one raises (the renderer sends the one
-pass whose points carry a gradient, single-network mode's second while
-training, to the plain MLP). On the CPU it recomputes through the plain
-version in f32 and takes ``torch.autograd.grad`` of it.
+(``fused_mlp_backward_cuda``): the weight and bias gradients in 3xTF32,
+reading the weights also in a transposed packed layout (``pack_layout_t``),
+with the ReLU decisions of the plain version in f32 where 3xTF32 may take
+another. They give no gradient for pts or dirs, so on the card a backward
+that wants one raises (the renderer sends the one pass whose points carry a
+gradient, single-network mode's second while training, to the plain MLP).
+On the CPU it recomputes through the plain version in f32 and takes
+``torch.autograd.grad`` of it.
+
+Who keeps what. The JAX package's custom VJP runs the network again in the
+backward; the port runs it once. Where the backward will follow (grad mode
+on, some weight wants a gradient, pts and dirs want none, f32), the forward
+launches the kernel's keeping instantiation, which also writes what the
+backward reads: every layer's input, the view layer's output, alpha, the
+trunk's ReLU masks and the points near a ReLU threshold (10,280 bytes a
+point at D=8, W=256, F=9: 0.67 GB for a train step's coarse pass, 2.02 GB
+for its fine one, held from the forward to the backward as a saved
+tensor). ``fused_mlp_cuda.kept`` counts the launches that kept. Renders
+(no_grad) launch the plain forward and keep nothing. In bf16, or when
+``fused_mlp_backward_cuda`` is called without the state, the backward
+first launches the keeping forward in f32 itself through
+``fused_mlp_cuda``: the recompute, in the same device code, counted in
+``launches`` and ``kept`` as any launch (a bf16 train step launches K1's
+forward four times, and its backward holds the state only while it runs).
+Measured times are in the CUDA source's headers.
 """
 
 from __future__ import annotations
@@ -369,45 +385,75 @@ def _check_call(what: str, weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, 
     return n
 
 
+def _shape_args(cfg: FusedCfg, n: int):
+    return (n, cfg.D, cfg.W, cfg.num_freqs, sum(1 << s for s in cfg.skips))
+
+
+def _size(lib, name: str, cfg: FusedCfg, n: int) -> int:
+    """Bytes from ``fused_mlp_kept_bytes`` or ``fused_mlp_backward_workspace``."""
+    size = ctypes.c_longlong()
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    _kernels.check(fn(*_shape_args(cfg, n), ctypes.byref(size)), name)
+    return size.value
+
+
 def fused_mlp_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs,
-                   compute_dtype=torch.float32):
-    """Launches kernel K1 on the current stream. ``fused_mlp_cuda.launches``
-    counts the launches."""
+                   compute_dtype=torch.float32, keep: bool = False):
+    """Launches kernel K1 on the current stream: (out, state), out (N, 4)
+    and state, with ``keep`` (f32 only), what K1's backward reads
+    (``fused_mlp_backward_cuda``) as one uint8 buffer, 10,280 bytes a point
+    at D=8, W=256, F=9 (``fused_mlp_kept_bytes``), else None.
+    ``fused_mlp_cuda.launches`` counts the launches and
+    ``fused_mlp_cuda.kept`` those that kept."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_mlp_cuda: compute_dtype {compute_dtype} not supported")
+    if keep and compute_dtype != torch.float32:
+        raise ValueError("fused_mlp_cuda: only the f32 forward keeps (the backward is the f32 "
+                         "network's gradient)")
     n = _check_call("fused_mlp_cuda", weights, cfg, pts, dirs)
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
-        return out
+        return out, None
+    lib = _kernels.load("fused_mlp")
+    state = (torch.empty(_size(lib, "fused_mlp_kept_bytes", cfg, n), dtype=torch.uint8,
+                         device=pts.device) if keep else None)
     packed = pack_weights(weights, cfg, compute_dtype)
     table = _layout_table(cfg, compute_dtype)
-    lib = _kernels.load("fused_mlp")
     fn = lib.fused_mlp_forward
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     biases = (ctypes.c_void_p * (cfg.D + 4))(*[b.data_ptr() for b in weights[1::2]])
-    skip_mask = sum(1 << s for s in cfg.skips)
     status = fn(
-        pts.data_ptr(), dirs.data_ptr(), out.data_ptr(), n, cfg.D, cfg.W,
-        cfg.num_freqs, skip_mask, int(compute_dtype == torch.bfloat16), packed.data_ptr(),
-        table, len(table) // 3, biases, torch.cuda.current_stream(pts.device).cuda_stream,
+        pts.data_ptr(), dirs.data_ptr(), out.data_ptr(), *_shape_args(cfg, n),
+        int(compute_dtype == torch.bfloat16), packed.data_ptr(), table, len(table) // 3, biases,
+        None if state is None else state.data_ptr(), 0 if state is None else state.numel(),
+        torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _kernels.check(status, "fused_mlp_forward")
     _kernels.count_launch(fused_mlp_cuda)
-    return out
+    if keep:
+        _kernels.count_launch(fused_mlp_cuda, "kept")
+    return out, state
 
 
 fused_mlp_cuda.launches = 0
+fused_mlp_cuda.kept = 0
 
 
-def fused_mlp_backward_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs, g):
+def fused_mlp_backward_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts, dirs, g,
+                            state=None):
     """K1's backward on the current stream: from the upstream gradient ``g``
     (N, 4), the gradient of the f32 network (3xTF32, see ``csrc/fused_mlp.cu``)
     for each tensor of ``weights``, in their order, as views of one buffer,
-    its ReLU decisions plain f32's. Four kernels and the packing of both
-    layouts; no gradient of pts or dirs. ``fused_mlp_backward_cuda.launches``
-    counts the calls."""
+    its ReLU decisions plain f32's. ``state``: what ``fused_mlp_cuda(...,
+    keep=True)`` kept for these weights and points; without it the call
+    first launches that keeping forward itself (counted as one). Four
+    kernels and the packing of the transposed layout; no gradient of pts or
+    dirs. ``fused_mlp_backward_cuda.launches`` counts the calls."""
     n = _check_call("fused_mlp_backward_cuda", weights, cfg, pts, dirs)
     _check_operand(g, (n, 4), "g")
     if g.data_ptr() % 16:
@@ -417,30 +463,27 @@ def fused_mlp_backward_cuda(weights: Sequence[torch.Tensor], cfg: FusedCfg, pts,
     if n == 0:
         grad.zero_()
     else:
+        if state is None:
+            _, state = fused_mlp_cuda(weights, cfg, pts, dirs, keep=True)
         lib = _kernels.load("fused_mlp")
-        skip_mask = sum(1 << s for s in cfg.skips)
-        shape = (n, cfg.D, cfg.W, cfg.num_freqs, skip_mask)
-        size = ctypes.c_longlong()
-        fn = lib.fused_mlp_backward_workspace
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-        fn.restype = ctypes.c_int
-        _kernels.check(fn(*shape, ctypes.byref(size)), "fused_mlp_backward_workspace")
-        workspace = torch.empty(size.value, dtype=torch.uint8, device=pts.device)
-        packed = pack_weights(weights, cfg, torch.float32)
+        if state.device != pts.device or state.dtype != torch.uint8 or not state.is_contiguous():
+            raise ValueError("fused_mlp_backward_cuda: state must be the contiguous uint8 buffer "
+                             "fused_mlp_cuda(..., keep=True) returns")
+        size = _size(lib, "fused_mlp_backward_workspace", cfg, n)
+        workspace = torch.empty(size, dtype=torch.uint8, device=pts.device)
         packed_t = pack_weights(weights, cfg, torch.float32, transposed=True)
-        table, table_t = _layout_table(cfg, torch.float32), _layout_table_t(cfg)
+        table_t = _layout_table_t(cfg)
         biases = (ctypes.c_void_p * (cfg.D + 4))(*[b.data_ptr() for b in weights[1::2]])
-        fn = lib.fused_mlp_backward
         mats = (ctypes.c_void_p * (cfg.D + 4))(*[w.data_ptr() for w in weights[0::2]])
+        fn = lib.fused_mlp_backward
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         status = fn(
-            pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), grad.data_ptr(), grad.numel(), *shape,
-            packed.data_ptr(), table, len(table) // 3, packed_t.data_ptr(), table_t,
-            len(table_t) // 3, mats, biases, workspace.data_ptr(), size.value,
+            pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), grad.data_ptr(), grad.numel(),
+            *_shape_args(cfg, n), packed_t.data_ptr(), table_t, len(table_t) // 3, mats, biases,
+            state.data_ptr(), state.numel(), workspace.data_ptr(), size,
             torch.cuda.current_stream(pts.device).cuda_stream,
         )
         _kernels.check(status, "fused_mlp_backward")
@@ -453,36 +496,44 @@ fused_mlp_backward_cuda.launches = 0
 
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, compute_dtype, pts, dirs, *weights):
+    def forward(ctx, cfg, compute_dtype, grad_mode, pts, dirs, *weights):
         ctx.cfg = cfg
-        ctx.save_for_backward(pts, dirs, *weights)
+        state = None
         if pts.device.type == "cpu":
-            return fused_mlp_plain(weights, cfg, pts, dirs, compute_dtype)
-        return fused_mlp_cuda(weights, cfg, pts, dirs, compute_dtype)
+            out = fused_mlp_plain(weights, cfg, pts, dirs, compute_dtype)
+        else:
+            # keep what the backward reads when it will run: needs_input_grad
+            # says what requires a gradient, even under no_grad
+            needs = ctx.needs_input_grad[3:]
+            keep = (grad_mode and compute_dtype == torch.float32 and any(needs[2:])
+                    and not needs[0] and not needs[1])
+            out, state = fused_mlp_cuda(weights, cfg, pts, dirs, compute_dtype, keep)
+        ctx.save_for_backward(pts, dirs, state, *weights)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        pts, dirs, *weights = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
+        pts, dirs, state, *weights = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
         if pts.device.type == "cuda":
             if needs[0] or needs[1]:
                 raise ValueError("fused_nerf_apply: K1's backward gives the weights' and biases' "
                                  "gradients only, not those of pts or dirs")
             with span("scade.k1.recompute"):
-                grads = fused_mlp_backward_cuda(weights, ctx.cfg, pts, dirs, g.contiguous())
-            return (None, None, None, None,
+                grads = fused_mlp_backward_cuda(weights, ctx.cfg, pts, dirs, g.contiguous(), state)
+            return (None, None, None, None, None,
                     *[gr if need else None for gr, need in zip(grads, needs[2:])])
         inputs = [t.detach().requires_grad_(need) for t, need in zip([pts, dirs, *weights], needs)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad(), span("scade.k1.recompute"):
             out = fused_mlp_plain(inputs[2:], ctx.cfg, inputs[0], inputs[1])
             grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
-        return (None, None, *[next(grads) if t.requires_grad else None for t in inputs])
+        return (None, None, None, *[next(grads) if t.requires_grad else None for t in inputs])
 
 
 def fused_nerf_apply(model, cfg: FusedCfg, pts, dirs, compute_dtype=torch.float32):
     """(N, 3) normalized pts + (N, 3) dirs → (N, 4) raw, differentiable in
     the model's parameters, and on the CPU also in pts and dirs (on the card
     a backward that wants their gradient raises)."""
-    return _FusedMLP.apply(cfg, compute_dtype, pts.contiguous(), dirs.contiguous(),
-                           *flat_weights(model))
+    return _FusedMLP.apply(cfg, compute_dtype, torch.is_grad_enabled(), pts.contiguous(),
+                           dirs.contiguous(), *flat_weights(model))

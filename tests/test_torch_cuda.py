@@ -24,8 +24,12 @@ and two tiles check the masked edge and a last block with few points;
 40,000 points (313 tiles) make the persistent blocks walk several tiles
 each. K1's backward kernels (``fused_mlp_backward_cuda``) at W = 64,
 128, 256 on 300, 65,536 and 196,645 points, after a forward in either mode:
-bit-equal over two calls, one counted call each and no launch of the
-forward kernel, and held to the plain f32 gradient through an f64 witness:
+bit-equal over two calls and to the call that recomputes the forward's kept
+state (the f32 forward keeps it and its backward launches no forward;
+bf16's keeps nothing and its backward launches the keeping forward, counted
+as one), one counted call each, and held to the plain f32 gradient through
+an f64 witness (at W = 256 also at D = 12 and 16, where the delta kernel
+reads a tile's ReLU masks from the kept state, not from shared memory):
 a ReLU pre-activation within rounding of 0 flips its unit's gradient, so
 the plain f32 recompute itself differs from the f64 gradient by 0.6-3% of a
 tensor's largest entry at these sizes (H100). Which points flip differs
@@ -35,7 +39,9 @@ every tensor's distance to the f64 gradient must stay within twice the
 plain version's worst plus 1e-5 of its largest entry, and within 1e-3 of
 the plain gradient at 300 points. With pts or dirs asking for a
 gradient, the backward raises: its kernels give the weights' gradients
-only. K2 bit for bit the plain
+only. K1's forward keeps its state only where K1's backward will follow
+(not under no_grad, in bf16, or for points that want a gradient), and
+keeping changes no bit of its output. K2 bit for bit the plain
 sample_pdf (cdf_kernel_order is the plain version's CDF law) on random and
 dyadic weights and on opaque rows (``opaque``), where an ulp of the CDF
 decides the 1e-5 guard; its strided and zero-stride inputs exactly as their
@@ -273,26 +279,36 @@ def relu_near_zero(weights, cfg, pts, dirs, margin):
 K1_BWD_PLAIN_TOL, K1_BWD_TOL, K1_BWD_MARGIN = 1e-5, 5e-5, 2.0**-13
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [300, 65536, 196608 + 37])
-@pytest.mark.parametrize("W,F", [(64, 4), (128, 4), (256, 9)])
-def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
+def k1_backward_holds(cuda, D, W, F, n, dtype):
+    """K1's backward through fused_nerf_apply at D layers (skip at 4),
+    width W, F frequencies and n points: the f32 forward keeps and its
+    backward launches no forward; bf16's keeps nothing and its backward
+    launches the keeping forward (the recompute). Two calls bit-equal, and
+    bit-equal to fused_mlp_backward_cuda without the state; held to the
+    plain f32 gradient and, where no ReLU decision lies near 0, to the f64
+    one, as TF32 products are not. pts or dirs asking for a gradient raise."""
     gen = torch.Generator().manual_seed(W + n)
-    model = NeRF(NeRFConfig(D=8, W=W, input_ch=3 + 6 * F, input_ch_views=3), generator=gen).to(cuda)
-    cfg = fused_mlp.FusedCfg(8, W, F, (4,))
+    model = NeRF(NeRFConfig(D=D, W=W, input_ch=3 + 6 * F, input_ch_views=3),
+                 generator=gen).to(cuda)
+    cfg = fused_mlp.FusedCfg(D, W, F, (4,))
     pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(cuda)
     dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(cuda)
     g = torch.randn(n, 4, generator=gen).to(cuda)
     params = fused_mlp.flat_weights(model)
+    f32 = dtype == torch.float32
+
+    def counts():
+        return (fused_mlp.fused_mlp_cuda.launches, fused_mlp.fused_mlp_cuda.kept,
+                fused_mlp.fused_mlp_backward_cuda.launches)
 
     def kernel_grads(g):
+        launches, kept, backward = counts()
         out = fused_mlp.fused_nerf_apply(model, cfg, pts, dirs, dtype)
-        forward = fused_mlp.fused_mlp_cuda.launches
-        backward = fused_mlp.fused_mlp_backward_cuda.launches
+        # the f32 forward keeps what the backward reads
+        assert counts() == (launches + 1, kept + f32, backward)
         grads = torch.autograd.grad(out, params, g)
-        assert fused_mlp.fused_mlp_cuda.launches == forward  # no forward kernel in the backward
-        assert fused_mlp.fused_mlp_backward_cuda.launches == backward + 1
+        # bf16's backward launches the keeping forward first; f32's none
+        assert counts() == (launches + 1 + (not f32), kept + 1, backward + 1)
         return grads
 
     def plain_grads(g, dt=torch.float32):
@@ -307,6 +323,11 @@ def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
 
     got = kernel_grads(g)
     assert all(torch.equal(a, b) for a, b in zip(got, kernel_grads(g)))
+    # from the kept state bit for bit what the call that recomputes it gives
+    launches, kept, backward = counts()
+    recomputed = fused_mlp.fused_mlp_backward_cuda([p.detach() for p in params], cfg, pts, dirs, g)
+    assert counts() == (launches + 1, kept + 1, backward + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, recomputed))
     assert max(errs(got, plain_grads(g), g)) <= K1_BWD_PLAIN_TOL
     # the products: against f64 where the ReLU decisions are clear, which
     # products in TF32 miss
@@ -328,6 +349,23 @@ def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [300, 65536, 196608 + 37])
+@pytest.mark.parametrize("W,F", [(64, 4), (128, 4), (256, 9)])
+def test_k1_backward_is_the_plain_gradient(cuda, W, F, n, dtype):
+    k1_backward_holds(cuda, 8, W, F, n, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 40000])
+@pytest.mark.parametrize("D", [12, 16])
+def test_k1_backward_of_a_deep_trunk_is_the_plain_gradient(cuda, D, n):
+    """Past D=10 at W=256 a tile's mask words do not fit in the delta
+    kernel's shared memory and it reads them from the kept state."""
+    k1_backward_holds(cuda, D, 256, 9, n, torch.float32)
+
+
+@pytest.mark.cuda
 def test_k1_backward_refuses_a_misaligned_g(cuda):
     gen = torch.Generator().manual_seed(3)
     model = NeRF(NeRFConfig(D=2, W=64, input_ch=27, input_ch_views=3), generator=gen).to(cuda)
@@ -338,6 +376,38 @@ def test_k1_backward_refuses_a_misaligned_g(cuda):
     weights = [w.detach() for w in fused_mlp.flat_weights(model)]
     with pytest.raises(ValueError, match="16-byte aligned"):
         fused_mlp.fused_mlp_backward_cuda(weights, cfg, pts, dirs, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,F,n", [(256, 9, 40000), (128, 4, 77), (64, 10, 300)])
+def test_k1_keeps_only_for_a_backward(cuda, W, F, n):
+    """K1's forward keeps its state only where autograd will take K1's
+    backward (grad mode on, a weight wanting a gradient, pts and dirs
+    none, f32); every other forward (a render under no_grad, bf16, points
+    that want a gradient) keeps nothing. Keeping changes no bit of out."""
+    gen = torch.Generator().manual_seed(W + n)
+    model = NeRF(NeRFConfig(D=8, W=W, input_ch=3 + 6 * F, input_ch_views=3), generator=gen).to(cuda)
+    cfg = fused_mlp.FusedCfg(8, W, F, (4,))
+    pts = (torch.rand(n, 3, generator=gen) * 2 - 1).to(cuda)
+    dirs = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1).to(cuda)
+
+    def forward(p=pts, dtype=torch.float32):
+        kept = fused_mlp.fused_mlp_cuda.kept
+        out = fused_mlp.fused_nerf_apply(model, cfg, p, dirs, dtype)
+        return out, fused_mlp.fused_mlp_cuda.kept - kept
+
+    kept_out, kept = forward()
+    assert kept == 1
+    with torch.no_grad():
+        plain_out, kept = forward()
+        assert kept == 0 and torch.equal(plain_out, kept_out)
+        assert forward(dtype=torch.bfloat16)[1] == 0
+    assert forward(dtype=torch.bfloat16)[1] == 0
+    out, kept = forward(pts.clone().requires_grad_())
+    assert kept == 0 and torch.equal(out, kept_out)
+    model.requires_grad_(False)
+    out, kept = forward()
+    assert kept == 0 and torch.equal(out, kept_out)
 
 
 @pytest.mark.cuda

@@ -125,21 +125,24 @@ def test_a_captured_launch_counts_at_each_replay_and_not_at_capture(monkeypatch)
 
     capturing = [False]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
-    launcher.launches = other.launches = 0
+    launcher.launches = other.launches = launcher.kept = 0
     _kernels.count_launch(launcher)
-    assert launcher.launches == 1
+    _kernels.count_launch(launcher, "kept")  # a second counter of the same launcher
+    assert (launcher.launches, launcher.kept) == (1, 1)
     capturing[0] = True
     _kernels.count_launch(launcher)  # captured with no tally open: counted nowhere
     with _kernels.tally() as outer:
         _kernels.count_launch(launcher)
         with _kernels.tally() as inner:
             _kernels.count_launch(launcher)
+            _kernels.count_launch(launcher, "kept")
             _kernels.count_launch(other)
-    assert (launcher.launches, other.launches) == (1, 0)
-    assert outer == [launcher] and inner == [launcher, other]
+    assert (launcher.launches, launcher.kept, other.launches) == (1, 1, 0)
+    assert outer == [(launcher, "launches")]
+    assert inner == [(launcher, "launches"), (launcher, "kept"), (other, "launches")]
     for _ in range(3):
         _kernels.count_replay(inner)
-    assert (launcher.launches, other.launches) == (4, 3)
+    assert (launcher.launches, launcher.kept, other.launches) == (4, 4, 3)
 
 
 SMALL = dict(multires=4, netwidth=64, netwidth_fine=64, n_samples=8, n_importance=16)
@@ -294,9 +297,11 @@ def cell(cuda, tc):
 
 
 def counters():
+    """The kernels' launch counters, then K1's forwards that kept what its
+    backward reads."""
     return (fused_mlp.fused_mlp_cuda.launches, fused_sampling.sample_pdf_cuda.launches,
             fused_sampling.sample_pdf_backward_cuda.launches,
-            fused_mlp.fused_mlp_backward_cuda.launches)
+            fused_mlp.fused_mlp_backward_cuda.launches, fused_mlp.fused_mlp_cuda.kept)
 
 
 def leaves(st):
@@ -348,9 +353,9 @@ def test_graph_steps_equal_eager_steps(cuda, case, monkeypatch):
     monkeypatch.setattr(step_fn, "_capture", counted)
     got, launches = run(step_fn, state, scene, range(steps), gen)
     assert step_fn.captures == captures and step_fn.replays == replays
-    assert at_capture == [(0, 0, 0, 0)] * captures
+    assert at_capture == [(0, 0, 0, 0, 0)] * captures
     assert launches == eager_launches
-    assert launches[-4:] == [(2, 2, 1, 2)] * 4
+    assert launches[-4:] == [(2, 2, 1, 2, 2)] * 4  # both passes keep for the backward
     assert (state.step, state.opt.count, state.ss_opt.count) == (steps,) * 3
     for i, (a, b) in enumerate(zip(got, want)):
         assert list(a) == list(b)
@@ -432,4 +437,4 @@ def test_a_replay_counts_the_kernels_it_runs(cuda, tmp_path):
         names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     ran = tuple(sum(bool(re.search(rf"\b{k}\b", n)) for n in names) for k in KERNELS)
     assert (step_fn.captures, step_fn.replays) == (1, 2)
-    assert advanced == ran == (2, 2, 1, 2)
+    assert advanced[:4] == ran == (2, 2, 1, 2) and advanced[4] == 2
