@@ -137,22 +137,38 @@ def _params(state) -> List[torch.Tensor]:
     return state.nerf_params() + [state.scales, state.shifts]
 
 
-def _launches() -> Dict[str, int]:
+def launches() -> Dict[str, int]:
+    """The kernels' launch counters: K1, K2, K2's backward, K1's backward."""
     return {"k1": fused_mlp.fused_mlp_cuda.launches, "k2": fused_sampling.sample_pdf_cuda.launches,
-            "k2_bwd": fused_sampling.sample_pdf_backward_cuda.launches}
+            "k2_bwd": fused_sampling.sample_pdf_backward_cuda.launches,
+            "k1_bwd": fused_mlp.fused_mlp_backward_cuda.launches}
+
+
+def check_launches(before: Dict[str, int], steps: int, expected: Dict[str, int]) -> None:
+    """Exits unless each counter of ``expected`` rose by its count a step."""
+    after = launches()
+    per_step = {k: (after[k] - before[k]) / steps for k in expected}
+    print("launches per step", per_step, flush=True)
+    if per_step != expected:
+        raise SystemExit(f"kernel launches per step {per_step} differ from {expected}")
+
+
+def render_config(c: dict, device):
+    """The program's render configuration as the configuration states it."""
+    return make_render_config(
+        multires=c["multires"], multires_views=c["multires_views"], netdepth=c["netdepth"],
+        netwidth=c["netwidth"], netdepth_fine=c["netdepth_fine"], netwidth_fine=c["netwidth_fine"],
+        n_samples=c["N_samples"], n_importance=c["N_importance"], perturb=c["perturb"] > 0,
+        raw_noise_std=c["raw_noise_std"], use_viewdirs=c["use_viewdirs"],
+        compute_dtype=torch.float32 if c["compute_dtype"] == "float32" else torch.bfloat16,
+        use_fused=c["use_fused"], fused_sampling=c["use_fused"], device=device.type)
 
 
 def setup(ctx) -> Run:
     c, dev = ctx.config, ctx.device
     devmod.set_precision(c)
     seeds = _seeds(ctx.seed)
-    rc = make_render_config(
-        multires=c["multires"], multires_views=c["multires_views"], netdepth=c["netdepth"],
-        netwidth=c["netwidth"], netdepth_fine=c["netdepth_fine"], netwidth_fine=c["netwidth_fine"],
-        n_samples=c["N_samples"], n_importance=c["N_importance"], perturb=c["perturb"] > 0,
-        raw_noise_std=c["raw_noise_std"], use_viewdirs=c["use_viewdirs"],
-        compute_dtype=torch.float32 if c["compute_dtype"] == "float32" else torch.bfloat16,
-        use_fused=c["use_fused"], fused_sampling=c["use_fused"], device=dev.type)
+    rc = render_config(c, dev)
     tc = S.TrainConfig(
         n_rand=c["N_rand"], lrate=c["lrate"], decay_step=c["decay_step"],
         decay_rate=c["decay_rate"], scaleshift_lr=c["scaleshift_lr"], scale_init=c["scale_init"],
@@ -171,7 +187,7 @@ def setup(ctx) -> Run:
               S.make_train_step(rc, tc, c["H"], c["W"], c["n_train"]),
               torch.Generator(device=dev))
 
-    before = _launches()
+    before = launches()
     losses, coarse = [], []
     for k in range(ctx.traffic["setup_steps"]):
         step(run)
@@ -187,12 +203,7 @@ def setup(ctx) -> Run:
                 {n: p.detach() - w0[n] for n, p in zip(_names(state), _params(state))})
     run.record["losses"], run.record["coarse_losses"] = losses, coarse
     if dev.type == "cuda":
-        after = _launches()
-        per_step = {k: (after[k] - before[k]) / ctx.traffic["setup_steps"] for k in after}
-        print("launches per step", per_step, flush=True)
-        if per_step != ctx.cell["launches_per_step"]:
-            raise SystemExit(f"kernel launches per step {per_step} differ from "
-                             f"{ctx.cell['launches_per_step']}")
+        check_launches(before, ctx.traffic["setup_steps"], ctx.cell["launches_per_step"])
     return run
 
 

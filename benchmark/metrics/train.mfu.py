@@ -2,7 +2,7 @@
 MLPs' operations of the traced steps over the host-clock time of as many
 untraced steps just before the trace (the profiler stretches the traced
 window), against the TF32 rate (the highest at which the card takes float32
-operands), in %. K1's recompute in the backward is not counted."""
+operands), in %."""
 
 from harness import peaks
 

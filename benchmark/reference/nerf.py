@@ -102,13 +102,14 @@ def encode(x, multires: int):
     return torch.cat([x, enc], dim=-1)
 
 
-def mlp(p: Dict[str, torch.Tensor], s: NerfSetup, x, dirs):
+def mlp(p: Dict[str, torch.Tensor], s: NerfSetup, x, dirs, linear=F.linear):
     """x (N, 3) normalized points, dirs (N, 3) unit directions → (N, 4):
-    rgb logits and the softplus(beta=10) density."""
+    rgb logits and the softplus(beta=10) density. ``linear(h, weight,
+    bias)`` computes each layer (the render's control passes a TF32 one)."""
     emb = encode(x, s.multires)
 
     def dense(h, name):
-        return F.linear(h, p[f"{name}.weight"], p[f"{name}.bias"])
+        return linear(h, p[f"{name}.weight"], p[f"{name}.bias"])
 
     h = emb
     for i in range(s.netdepth):

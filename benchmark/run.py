@@ -169,7 +169,8 @@ def main(argv=None, root: str = BENCH, require=None) -> int:
         sys.stderr.write("window ms a step by block of 25 steps: "
                          + " ".join(f"{b:.1f}" for b in blocks) + "\n")
         name = wl.cell["per_step_metric"]
-        metrics = {name: {"value": seconds / attempted * 1e3, "unit": e2e_units[name]},
+        per_step = seconds / attempted * {"s": 1.0, "ms": 1e3}[e2e_units[name]]
+        metrics = {name: {"value": per_step, "unit": e2e_units[name]},
                    "setup_s": {"value": setup_s, "unit": e2e_units["setup_s"]}}
     info = devmod.describe(dev, wl.chips)
     if args.trace:

@@ -21,7 +21,7 @@ def _limits(workload):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["scannet-train", "prior-step"])
+@pytest.mark.parametrize("workload", ["scannet-train", "prior-step", "scannet-render"])
 def test_control_is_not_correct(cuda, workload):
     limits = _limits(workload)
     for seed, checks, _ in readings.readings(workload, "control", SEEDS):

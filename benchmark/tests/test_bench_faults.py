@@ -2,7 +2,9 @@
 skipped: a sound program comes out correct, and each fault a driver plants
 in the program's timed path (a step that leaves the state unchanged, half
 of the batch left out with the mean taken over the rest, the recache's
-answer altered where it is made) comes out not correct."""
+answer altered where it is made, a render chunk's answers lost, the fine
+pass fed the coarse samples only) comes out not correct; so does the
+render's control, whose TF32 the reference emulates on any device."""
 
 import contextlib
 import json
@@ -10,12 +12,14 @@ import json
 import pytest
 import torch
 
+import readings
 import run
-from harness import manifest
+from harness import judge, manifest
 from tiny import tiny_copy
 
 CELLS = {"scannet-train": ("unchanged", "half_batch"),
-         "prior-step": ("unchanged", "half_batch", "answer")}
+         "prior-step": ("unchanged", "half_batch", "answer"),
+         "scannet-render": ("chunk_lost", "coarse_only")}
 
 
 @pytest.fixture(scope="module")
@@ -44,3 +48,10 @@ def test_fault_turns_correct_false(root, workload, fault, capsys):
 def test_every_planted_fault_is_tested(root):
     for workload, faults in CELLS.items():
         assert set(manifest.load(root, workload).driver().FAULTS) == set(faults)
+
+
+def test_render_control_is_not_correct(root):
+    limits = manifest.load(root, "scannet-render").cell["limits"]
+    for seed, checks, _ in readings.readings("scannet-render", "control", (2147483651, 11),
+                                             root=root, require=lambda n: None):
+        assert not judge.verdict(checks, limits), (seed, checks)

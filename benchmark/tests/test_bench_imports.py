@@ -25,7 +25,7 @@ def test_run_and_its_drivers_load_no_jax():
     code = """
 import run
 from harness import manifest
-for w in ("scannet-train", "prior-step"):
+for w in ("scannet-train", "prior-step", "scannet-render"):
     wl = manifest.load(run.BENCH, w)
     wl.driver(); wl.counts()
     [wl.metric_reader(m["name"]) for m in wl.per_layer]
@@ -37,5 +37,5 @@ import readings
 
 
 def test_references_load_neither_jax_nor_the_port():
-    tops = _top_modules("import reference.nerf, reference.prior")
+    tops = _top_modules("import reference.nerf, reference.nerf_render, reference.prior")
     assert not tops & {"jax", "jaxlib", "flax", "scade_tpu", "scade_tpu_torch"}

@@ -13,6 +13,7 @@ from harness.trace import Trace
 K1 = "void (anonymous namespace)::fused_mlp_kernel<float, 256>(float const*, float const*)"
 K2 = "(anonymous namespace)::sample_pdf_kernel(float const*, long long)"
 K2B = "(anonymous namespace)::sample_pdf_backward_kernel(float const*, long long)"
+K1B = "void (anonymous namespace)::k1_backward_dw_kernel<256>(float const*, int)"
 BWD = "autograd::engine::evaluate_function: "
 
 
@@ -33,7 +34,7 @@ def _events():
     launches = [(1, 115, 1), (2, 610, 2), (3, 710, 2), (4, 50, 1), (5, 300, 1), (6, 720, 2)]
     ev += [_x("cuda_runtime", "cudaLaunchKernel", ts, 2, tid=tid, correlation=c)
            for c, ts, tid in launches]
-    kernels = [(1, "k_mul", 130, 20), (2, "k_mul_backward", 620, 30), (3, "k_addmm", 720, 40),
+    kernels = [(1, "k_mul", 130, 20), (2, "k_mul_backward", 620, 30), (3, K1B, 720, 40),
                (4, K1, 60, 40), (5, K2, 310, 10), (6, K2B, 770, 10)]
     ev += [{"ph": "X", "cat": "kernel", "name": n, "ts": ts, "dur": d, "pid": 0, "tid": 7,
             "args": {"correlation": c}} for c, n, ts, d in kernels]
@@ -51,6 +52,7 @@ class Ctx:
     steps = 2
     untraced_s = 800e-6
     work = {"k1_flops": 20e-6 * peaks.TF32_FLOPS, "k1_bytes": 1.0,
+            "k1_backward_flops": 10e-6 * peaks.TF32_FLOPS, "k1_backward_bytes": 1.0,
             "k2_bytes": 5e-6 * peaks.HBM_BYTES_PER_S, "model_flops": 0.1 * 1e-3 * peaks.TF32_FLOPS}
 
 
@@ -60,11 +62,13 @@ def _read(name, trace):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("train.backward_ms", 0.040), ("prior.backward_ms", 0.040),
-    ("prior.criterion_ms", 0.025),
+    ("prior.backward_ms", 0.040), ("prior.criterion_ms", 0.025),
     ("device.idle_share.train", 81.25), ("device.idle_share.prior", 81.25),
+    ("device.idle_share.render", 81.25),
     ("k1_roofline.train", 50.0), ("k2_roofline.train", 25.0),
-    ("train.mfu", 12.5), ("prior.mfu", 12.5),
+    ("k1_backward_roofline.train", 25.0),
+    ("k1_roofline.render", 50.0), ("k2_roofline.render", 50.0),  # no K2 backward in a render
+    ("train.mfu", 12.5), ("prior.mfu", 12.5), ("render.mfu", 12.5),
 ])
 def test_reader(trace, name, value):
     assert _read(name, trace) == pytest.approx(value)
@@ -84,6 +88,8 @@ def test_breakdown(trace):
 
 def test_readers_find_nothing_without_device_ops(trace):
     empty = Trace([e for e in _events() if e["cat"] != "kernel"])
-    for name in ("train.backward_ms", "prior.criterion_ms", "k1_roofline.train",
-                 "k2_roofline.train", "device.idle_share.train", "train.mfu"):
+    for name in ("prior.backward_ms", "prior.criterion_ms", "k1_roofline.train",
+                 "k2_roofline.train", "k1_backward_roofline.train", "k1_roofline.render",
+                 "k2_roofline.render", "device.idle_share.train", "device.idle_share.render",
+                 "train.mfu", "render.mfu"):
         assert _read(name, empty) is None, name

@@ -16,6 +16,8 @@ TINY = {
                               mini_batch_size=2),
 }
 TRAFFIC = {"trace_warm_steps": 1, "trace_steps": 2}
+# a view of 12 x 16 rays in three chunks
+CHUNKS = {"nerf-render-views.json": {"chunk": 64}}
 
 
 def tiny_copy(tmp: str) -> str:
@@ -35,7 +37,7 @@ def tiny_copy(tmp: str) -> str:
         path = os.path.join(root, "traffic", name)
         with open(path) as fp:
             traffic = json.load(fp)
-        traffic.update(TRAFFIC)
+        traffic.update(TRAFFIC, **CHUNKS.get(name, {}))
         with open(path, "w") as fp:
             json.dump(traffic, fp)
     return root
